@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # Fq, t = 2^16, 8,192 lanes
+    python3 chip_smoke.py   # MinRoot Fq, t = 2^16, 8,192 lanes; commits n = 2^14
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -16,7 +16,21 @@ Phases (any failure exits non-zero; nothing is caught):
              on CUDA tensors, a tampered proof that must fail, and a
              two-segment append that must verify; lanes 0, 1 and the last
              are checked against Python-int MinRoot;
-  4. evidence the launch counters of both kernels moved during phase 3.
+  4. evidence the launch counters of both kernels moved during phase 3;
+  5. commit kernels  K3 (canon_digits, canon_mont), K7 (shift_gens), K4
+             (scan), K5 (colscan) and K6 (bucket) against their plain
+             versions on the card, on Pallas and Vesta at n = 256 (K = 2
+             rows): every output element bit-for-bit equal; then at the
+             commit's main shape, n = 2^14, each kernel's time beside its
+             plain version's, outputs again bit-for-bit equal;
+  6. commit  for Pallas and Vesta: commitment_key(curve, 2^14) (host
+             derivation and K7 table timed apart), commit of xorshift
+             scalars == the native C++ Pippenger in affine, the K = 2 batch
+             == two single commits, zero -> identity, e_0 -> G_0,
+             (q - 1) e_{n-1} -> -G_{n-1}, one changed scalar changes the
+             commitment; commit_fixed's canonical output agrees; wall and
+             CUDA-event ms of a commit at K = 1 and K = 2;
+  7. evidence the launch counters of K3-K7 moved during phase 6.
 
 The last lines are a JSON object of per-kernel evidence, the card's name
 and power limit, and the contract line
@@ -37,6 +51,17 @@ T = 1 << 16  # main-path rounds (BASELINE config 1)
 CHECK_LANES = 1024  # kernel-vs-plain lanes
 CHECK_T = 4  # kernel-vs-plain rounds (the plain K1 costs ~0.3 s a round)
 T_APPEND = 1024  # rounds of the appended second segment
+COMMIT_N = 1 << 14  # commit length: the bench IVC's (t = 32) _commit_pad, both curves
+COMMIT_CHECK_N = 256  # kernel-vs-plain commit length
+COMMIT_CURVES = ("pallas", "vesta")
+COMMIT_KERNELS = {  # launch counter -> (wrapper in curves/kernels.py, TPU kernel it replaces)
+    "canon_digits": ("canon_digits", "vdf_tpu/curves/pallas_msm.py:130"),  # K3 mode 0
+    "canon_mont": ("canon_mont", "vdf_tpu/curves/pallas_msm.py:130"),  # K3 mode 1
+    "shift_gens": ("shift_gens", "vdf_tpu/curves/pallas_msm.py:259"),  # K7
+    "scan": ("bucket_scan", "vdf_tpu/curves/pallas_msm.py:150"),  # K4
+    "colscan": ("column_carries", "vdf_tpu/curves/pallas_msm.py:171"),  # K5
+    "bucket": ("bucket_sums", "vdf_tpu/curves/pallas_msm.py:206"),  # K6
+}
 
 
 def _log(msg: str) -> None:
@@ -65,10 +90,17 @@ def _cuda_ms(fn, args, reps: int):
 
 
 def _max_abs_err(got, want) -> int:
+    """Largest |difference| between two equal-shaped integer tensors; int32
+    limbs compare as the u32 words they hold."""
     import torch
 
-    diff = (got.to(torch.int64) & 0xFFFFFFFF) - (want.to(torch.int64) & 0xFFFFFFFF)
-    return int(diff.abs().max().item())
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise SystemExit(f"shape/dtype mismatch: {tuple(got.shape)} {got.dtype} vs "
+                         f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.to(torch.int64), want.to(torch.int64)
+    if got.dtype == torch.int32:
+        g, w = g & 0xFFFFFFFF, w & 0xFFFFFFFF
+    return int((g - w).abs().max().item()) if g.numel() else 0
 
 
 def phase_build() -> None:
@@ -220,6 +252,214 @@ def phase_main(device, lanes: int, t: int, t_append: int) -> dict:
     return out
 
 
+def _commit_inputs(curve_name: str, n: int, k: int, device):
+    """Inputs of the commit kernels at length n: the points of a small
+    hash-derived set, repeated to n, as generators (n, 3, 8) and as
+    canonical x-coordinate integers (K3 mode 1's input); k rows of
+    xorshift scalars holding 0, 1, q - 1 and a run of n/4 equal values
+    (runs that cross columns); their window-digit keys, and those sorted."""
+    import numpy as np
+    import torch
+
+    from vdf_tpu_torch.curves import get_curve, hash_to_curve_ints, stack_point
+    from vdf_tpu_torch.curves import kernels as CK
+    from vdf_tpu_torch.curves.bucket_msm import layout
+    from vdf_tpu_torch.utils import TEST_SEED, XorShiftRng
+
+    c = get_curve(curve_name)
+    base = hash_to_curve_ints(curve_name, min(n, COMMIT_CHECK_N), domain=b"vdf_tpu/t")
+    aff = [base[i % len(base)] for i in range(n)]
+    gens = stack_point(c.from_affine_ints(aff, device)).contiguous()
+    xs = b"".join(x.to_bytes(32, "little") for x, _ in aff)
+    ints = torch.from_numpy(np.frombuffer(xs, dtype="<u4").view(np.int32).copy())
+    ints = ints.reshape(n, 8).to(device)
+    q = c.scalar.params.modulus
+    vals = _xorshift_ints(k * n, q, XorShiftRng(TEST_SEED))
+    vals[:4] = [0, 1, q - 1, q - 1]
+    vals[4 : 4 + n // 4] = [vals[4]] * (n // 4)
+    s = c.scalar.encode(vals, device).reshape(k, n, 8)
+    _, m_pad = layout(n)
+    keys = CK.canon_digits(c.params.scalar_field, s, m_pad)
+    return gens, ints, s, keys, torch.sort(keys, dim=-1).values
+
+
+def _commit_stage_args(curve_name: str, gens, ints, s, sorted_keys) -> dict:
+    """counter -> the arguments its wrapper and plain version both take.
+    Each stage's inputs are the kernel outputs of the stage before it."""
+    from vdf_tpu_torch.curves import CURVES
+    from vdf_tpu_torch.curves import kernels as CK
+    from vdf_tpu_torch.curves.bucket_msm import ROWS
+
+    bf, sf = CURVES[curve_name].base_field, CURVES[curve_name].scalar_field
+    table = CK.shift_gens(bf, gens)
+    tails, tail_col, sums, flags = CK.bucket_scan(bf, table, sorted_keys, ROWS)
+    carries = CK.column_carries(bf, sums, flags)
+    return {
+        "canon_digits": (sf, s, sorted_keys.shape[1]),
+        "canon_mont": (bf, ints),
+        "shift_gens": (bf, gens),
+        "scan": (bf, table, sorted_keys, ROWS),
+        "colscan": (bf, sums, flags),
+        "bucket": (bf, tails, tail_col, carries),
+    }
+
+
+def _require_same(kname: str, where: str, got, want, err: dict) -> None:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    e = max(_max_abs_err(g, w) for g, w in zip(got, want))
+    err[kname] = max(err.get(kname, 0), e)
+    if e:
+        raise SystemExit(f"{kname} {where} disagrees with its plain version (max |diff| {e})")
+
+
+def phase_commit_kernels(device, check_n: int, n: int) -> dict:
+    """K3-K7 vs plain, bit for bit, on both curves at check_n (K = 2
+    rows), then at n (K = 1) with times; returns per-kernel error and the
+    Pallas times at n."""
+    import torch
+
+    from vdf_tpu_torch.curves import kernels as CK
+
+    err, times = {}, {}
+    for curve_name in COMMIT_CURVES:
+        gens, ints, s, _, sorted_keys = _commit_inputs(curve_name, check_n, 2, device)
+        args = _commit_stage_args(curve_name, gens, ints, s, sorted_keys)
+        for kname, (fn, _) in COMMIT_KERNELS.items():
+            got = getattr(CK, fn)(*args[kname])
+            want = getattr(CK, fn + "_plain")(*args[kname])
+            torch.cuda.synchronize()
+            _require_same(kname, f"on {curve_name} at n={check_n}", got, want, err)
+        _log(f"commit kernels: {curve_name} K3-K7 == plain at n={check_n}, K=2, bit for bit")
+
+    for curve_name in COMMIT_CURVES:
+        gens, ints, s, keys, sorted_keys = _commit_inputs(curve_name, n, 1, device)
+        sort_ms, _ = _cuda_ms(lambda k: torch.sort(k, dim=-1).values, (keys,), reps=5)
+        _log(f"timing: torch.sort of {keys.shape[1]} keys on {curve_name}: {sort_ms:.4f} ms")
+        args = _commit_stage_args(curve_name, gens, ints, s, sorted_keys)
+        for kname, (fn, _) in COMMIT_KERNELS.items():
+            ms, got = _cuda_ms(getattr(CK, fn), args[kname], reps=5)
+            plain_ms, want = _cuda_ms(getattr(CK, fn + "_plain"), args[kname], reps=1)
+            _require_same(kname, f"on {curve_name} at n={n}", got, want, err)
+            _log(f"timing: {kname} {curve_name} n={n}: kernel {ms:.4f} ms, plain "
+                 f"{plain_ms:.4f} ms; == plain, bit for bit")
+            if curve_name == "pallas":
+                times[kname] = {"ms": ms, "plain_ms": plain_ms}
+    return {k: {"max_abs_err": err[k], **times[k]} for k in COMMIT_KERNELS}
+
+
+def _affine(curve, pt):
+    from vdf_tpu_torch.curves import Point
+
+    return curve.to_affine_ints(Point(*(v[None] for v in pt)))[0]
+
+
+def _commit_ms(fn, arg, reps: int = 5) -> tuple[float, float]:
+    """(wall ms, CUDA-event ms) of fn(arg), means of reps calls after one
+    warm-up; the host clock runs from the first call to a synchronize."""
+    import torch
+
+    fn(arg)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn(arg)
+    end.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps, start.elapsed_time(end) / reps
+
+
+def phase_commit(device, n: int) -> tuple[dict, dict]:
+    """The commit main path on both curves; returns per-curve stats and
+    the K3-K7 launch counts of the run."""
+    import torch
+
+    from vdf_tpu_torch.curves import commit_fixed, get_curve, stack_point
+    from vdf_tpu_torch.curves import kernels as CK
+    from vdf_tpu_torch.native import msm_native_affine
+    from vdf_tpu_torch.nova import DEFAULT_LABEL, commitment_key, derive_generators
+    from vdf_tpu_torch.utils import TEST_SEED, XorShiftRng
+
+    stats = {}
+    CK.reset_launches()
+    for name in COMMIT_CURVES:
+        c = get_curve(name)
+        mod, q = c.field.params.modulus, c.scalar.params.modulus
+        t0 = time.perf_counter()
+        pts = derive_generators(name, n, DEFAULT_LABEL)
+        derive_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck = commitment_key(name, n, device=device)  # K3 mode 1 on the derived ints
+        torch.cuda.synchronize()
+        key_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        table = ck.table  # K7
+        torch.cuda.synchronize()
+        table_s = time.perf_counter() - t0
+        _log(f"commit: {name} key n={n}: derivation {derive_s:.3f} s (host), to the card "
+             f"{key_s:.3f} s, K7 table {tuple(table.shape)} {table_s:.3f} s")
+
+        rng = XorShiftRng(TEST_SEED)
+        vals, vals2 = _xorshift_ints(n, q, rng), _xorshift_ints(n, q, rng)
+        s, s2 = c.scalar.encode(vals, device), c.scalar.encode(vals2, device)
+        pt = ck.commit(s)
+        t0 = time.perf_counter()
+        got = _affine(c, pt)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = msm_native_affine(name, list(pts[:n]), vals)
+        native_s = time.perf_counter() - t0
+        if got is None or got != want:
+            raise SystemExit(f"commit: {name} commit != native Pippenger in affine")
+
+        batch = stack_point(ck.commit_batch(torch.stack([s, s2])))
+        if not (torch.equal(batch[0], stack_point(pt))
+                and torch.equal(batch[1], stack_point(ck.commit(s2)))):
+            raise SystemExit(f"commit: {name} K = 2 batch != two single commits")
+        zero = torch.zeros_like(s)
+        if _affine(c, ck.commit(zero)) is not None:
+            raise SystemExit(f"commit: {name} zero vector did not give the identity")
+        e0 = zero.clone()
+        e0[0] = c.scalar.encode(1, device)
+        if _affine(c, ck.commit(e0)) != pts[0]:
+            raise SystemExit(f"commit: {name} e_0 did not give G_0")
+        last = zero.clone()
+        last[n - 1] = c.scalar.encode(q - 1, device)
+        x, y = pts[n - 1]
+        if _affine(c, ck.commit(last)) != (x, (-y) % mod):
+            raise SystemExit(f"commit: {name} (q - 1) e_(n-1) did not give -G_(n-1)")
+        changed = s.clone()
+        changed[n // 2] = c.scalar.encode(vals[n // 2] + 1, device)
+        if _affine(c, ck.commit(changed)) == got:
+            raise SystemExit(f"commit: {name} changing one scalar left the commitment as it was")
+        _, canon = commit_fixed(name, s)
+        cx, cy, cz = (int.from_bytes(r.to(torch.int64).bitwise_and(0xFFFFFFFF).cpu().numpy()
+                                     .astype("<u4").tobytes(), "little") for r in canon)
+        zi = pow(cz, -1, mod)
+        if (cx * zi % mod, cy * zi % mod) != got:
+            raise SystemExit(f"commit: {name} commit_fixed's canonical output disagrees")
+
+        k1_wall, k1_event = _commit_ms(ck.commit, s)
+        k2_wall, k2_event = _commit_ms(ck.commit_batch, torch.stack([s, s2]))
+        stats[name] = {
+            "n": n, "derive_s": derive_s, "key_to_card_s": key_s, "table_s": table_s,
+            "commit_ms": k1_wall, "commit_event_ms": k1_event,
+            "commit2_ms": k2_wall, "commit2_event_ms": k2_event,
+            "decode_ms": decode_ms, "native_s": native_s,
+        }
+        _log(f"commit: {name} == native in affine; K=2 == singles; zero, e_0, (q-1) e_(n-1) "
+             f"and a changed scalar ok; " + json.dumps(stats[name]))
+    torch.cuda.synchronize()
+    launches = dict(CK.LAUNCHES)
+    _log(f"commit: launches during the commit main path {launches}")
+    for kname, count in launches.items():
+        if count <= 0:
+            raise SystemExit(f"evidence: kernel {kname} was not launched by the commit main path")
+    return stats, launches
+
+
 def main() -> None:
     import torch
 
@@ -233,6 +473,8 @@ def main() -> None:
     phase_build()
     kernel_stats = phase_kernels(device, CHECK_LANES, CHECK_T, LANES)
     main_stats = phase_main(device, LANES, T, T_APPEND)
+    commit_kernel_stats = phase_commit_kernels(device, COMMIT_CHECK_N, COMMIT_N)
+    _, commit_launches = phase_commit(device, COMMIT_N)
 
     replaces = {
         "minroot_eval": "vdf_tpu/fields/pallas_field.py:273",
@@ -251,6 +493,19 @@ def main() -> None:
             "timed_at": {"lanes": st["lanes"], "t": st["t"], "field": "Fq"},
         }
         for name, st in kernel_stats.items()
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "vdf_tpu_torch/csrc/msm_kernels.cuh",
+            "replaces": COMMIT_KERNELS[name][1],
+            "launches": commit_launches[name],
+            "max_abs_err": st["max_abs_err"],
+            "ms": st["ms"],
+            "plain_ms": st["plain_ms"],
+            "timed_at": {"n": COMMIT_N, "curve": "pallas", "batch": 1},
+        }
+        for name, st in commit_kernel_stats.items()
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -1,14 +1,15 @@
 """The port's kernel build and wrapper dispatch (vdf_tpu_torch._build,
-vdf_tpu_torch.fields.kernels).
+vdf_tpu_torch.fields.kernels, vdf_tpu_torch.curves.kernels).
 
 On the CPU: the build refuses to go on without nvcc, a CPU tensor takes
 the plain version without touching the launch counters, and malformed
 input raises.  The ``gpu`` tests run the CUDA kernels against their plain
 versions and skip where ``torch.cuda.is_available()`` is False:
 
-    python -m pytest tests/test_torch_build.py -q -m gpu
+    python -m pytest tests/test_torch_build.py -q -m gpu --noconftest
 """
 
+import functools
 import re
 
 import numpy as np
@@ -16,6 +17,9 @@ import pytest
 import torch
 
 from vdf_tpu_torch import _build
+from vdf_tpu_torch.curves import CURVES, get_curve, hash_to_curve_ints, stack_point
+from vdf_tpu_torch.curves import kernels as CK
+from vdf_tpu_torch.curves.bucket_msm import layout
 from vdf_tpu_torch.errors import KernelError
 from vdf_tpu_torch.fields import FIELDS, get_field
 from vdf_tpu_torch.fields.kernels import (
@@ -27,6 +31,11 @@ from vdf_tpu_torch.fields.kernels import (
     reset_launches,
 )
 from vdf_tpu_torch.fields.params import int_to_limbs
+
+# The plain versions are many small tensor ops: one intra-op thread runs
+# them fastest, and test workers sharing the cores do not oversubscribe
+# them (with a thread pool per worker they ran ~10x slower under load).
+torch.set_num_threads(1)
 
 
 def state(name: str, lanes: int, seed: int, device="cpu"):
@@ -70,7 +79,16 @@ def test_constants_header_matches_params():
         assert w[8:16] == int_to_limbs(2 * P.modulus).tolist()
         assert w[16:24] == int_to_limbs(P.mont_one).tolist()
         assert (w[24] * P.modulus) % (1 << 32) == (1 << 32) - 1  # -1/p mod 2^32
+    curve = re.search(r"VDF_CURVE_CONSTS_INIT (.*)", text).group(1)
+    words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]+)u", curve)]
+    assert len(words) == 2 * 16
+    for k, name in enumerate(("Fp", "Fq")):
+        P = FIELDS[name]
+        w = words[k * 16 : (k + 1) * 16]
+        assert w[0:8] == int_to_limbs(15 * P.r % P.modulus).tolist()  # 3b, Montgomery
+        assert w[8:16] == int_to_limbs(P.r * P.r % P.modulus).tolist()  # R^2 mod p
     assert _build.build_key() == _build.build_key()
+    assert set(_build.LAUNCHERS) >= {"vdf_minroot_eval", "vdf_scan", "vdf_bucket"}
 
 
 @pytest.mark.parametrize("name", ["Fp", "Fq"])
@@ -147,3 +165,136 @@ def test_kernels_canonicalise_any_limbs_on_card(cuda):
                         (minroot_inverse, minroot_inverse_plain)):
         got = kern("Fq", ones, ones, ones, 1)
         assert all(torch.equal(a, b) for a, b in zip(got, plain("Fq", ones, ones, ones, 1)))
+
+
+# ---------------------------------------------------------------------
+# the fixed-base commit kernels K3-K7 (curves/kernels.py)
+# ---------------------------------------------------------------------
+
+
+def commit_inputs(curve_name: str, n: int, k: int, rows: int, device="cpu"):
+    """Generators (n, 3, 8), their table (W n, 3, 8), and sorted keys of
+    (k, n) random scalars (with 0, 1, q - 1), all on ``device``."""
+    c = get_curve(curve_name)
+    params = CURVES[curve_name]
+    gens = stack_point(c.from_affine_ints(
+        hash_to_curve_ints(curve_name, n, domain=b"vdf_tpu/t"))).contiguous()
+    table = CK.shift_gens_plain(params.base_field, gens)
+    q = c.scalar.params.modulus
+    nrng = np.random.default_rng(11)
+    vals = [int(v) % q for v in nrng.integers(0, 1 << 63, size=k * n)]
+    vals[:3] = [0, 1, q - 1][: k * n]
+    s = c.scalar.encode(vals).reshape(k, n, 8)
+    _, m_pad = layout(n, rows)
+    keys = torch.sort(CK.canon_digits_plain(params.scalar_field, s, m_pad), -1).values
+    return tuple(a.to(device) for a in (gens, table, s, keys))
+
+
+def commit_stages(bf: str, sf: str, gens, table, s, keys, rows: int, plain: bool):
+    """Every K3-K7 stage on the same inputs, through the wrappers or their
+    plain versions."""
+    fns = {name: getattr(CK, name + ("_plain" if plain else "")) for name in (
+        "canon_digits", "canon_mont", "shift_gens", "bucket_scan", "column_carries",
+        "bucket_sums")}
+    ints = gens[:, 0].contiguous()
+    scan = fns["bucket_scan"](bf, table, keys, rows)
+    carries = fns["column_carries"](bf, scan[2], scan[3])
+    return {
+        "canon_digits": fns["canon_digits"](sf, s, keys.shape[1]),
+        "canon_mont": fns["canon_mont"](bf, ints),
+        "shift_gens": fns["shift_gens"](bf, gens),
+        "scan": scan,
+        "colscan": carries,
+        "bucket": fns["bucket_sums"](bf, scan[0], scan[1], carries),
+    }
+
+
+@functools.cache
+def cpu_case():
+    """Pallas inputs (n = 3, K = 1, rows = 4) and each stage's plain output."""
+    ins = commit_inputs("pallas", 3, 1, 4)
+    return ins, commit_stages("Fp", "Fq", *ins, 4, plain=True)
+
+
+def test_commit_wrappers_take_plain_version_on_cpu_and_count_nothing():
+    CK.reset_launches()
+    ins, want = cpu_case()
+    got = commit_stages("Fp", "Fq", *ins, 4, plain=False)
+    for name in got:
+        g = got[name] if isinstance(got[name], tuple) else (got[name],)
+        w = want[name] if isinstance(want[name], tuple) else (want[name],)
+        assert all(torch.equal(a, b) for a, b in zip(g, w)), name
+    assert set(CK.LAUNCHES.values()) == {0}
+
+
+def _bad_commit_calls():
+    (gens, table, s, keys), out = cpu_case()
+    tails, tail_col, sums, flags = out["scan"]
+    carries = out["colscan"]
+    return {
+        "digits_dtype": lambda: CK.canon_digits("Fq", s.to(torch.int64), keys.shape[1]),
+        "digits_m_pad": lambda: CK.canon_digits("Fq", s, 3),
+        "digits_rank": lambda: CK.canon_digits("Fq", s[0], keys.shape[1]),
+        "mont_width": lambda: CK.canon_mont("Fp", gens[:, 0, :7].contiguous()),
+        "gens_strided": lambda: CK.shift_gens("Fp", gens.transpose(0, 1)),
+        "gens_field": lambda: CK.shift_gens("F17", gens),
+        "scan_rows": lambda: CK.bucket_scan("Fp", table, keys, 5),
+        "scan_keys_dtype": lambda: CK.bucket_scan("Fp", table, keys.to(torch.int32), 4),
+        "scan_not_tensor": lambda: CK.bucket_scan("Fp", table.numpy(), keys, 4),
+        "colscan_flags": lambda: CK.column_carries("Fp", sums, flags[:, :1].contiguous()),
+        "bucket_width": lambda: CK.bucket_sums("Fp", tails[:, :100].contiguous(),
+                                               tail_col, carries),
+        "bucket_device": lambda: CK.bucket_sums("Fp", tails.to("meta"), tail_col.to("meta"),
+                                                carries.to("meta")),
+    }
+
+
+BAD_COMMIT_CALLS = [
+    "digits_dtype", "digits_m_pad", "digits_rank", "mont_width", "gens_strided", "gens_field",
+    "scan_rows", "scan_keys_dtype", "scan_not_tensor", "colscan_flags", "bucket_width",
+    "bucket_device",
+]
+
+
+def test_bad_commit_call_list_is_complete():
+    assert sorted(_bad_commit_calls()) == sorted(BAD_COMMIT_CALLS)
+
+
+@pytest.mark.parametrize("case", BAD_COMMIT_CALLS)
+def test_commit_wrappers_reject_malformed_input(case):
+    with pytest.raises(KernelError):
+        _bad_commit_calls()[case]()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
+def test_commit_kernels_match_plain_on_card(cuda, curve_name):
+    """K3 (both modes), K4, K5, K6 and K7 on the card vs their plain
+    versions on the same CUDA tensors (K = 2, n = 6, rows = 5: a ragged
+    last column); each launch counted once."""
+    params = CURVES[curve_name]
+    ins = commit_inputs(curve_name, 6, 2, 5, device=cuda)
+    CK.reset_launches()
+    got = commit_stages(params.base_field, params.scalar_field, *ins, 5, plain=False)
+    assert set(CK.LAUNCHES.values()) == {1}
+    want = commit_stages(params.base_field, params.scalar_field, *ins, 5, plain=True)
+    for name in got:
+        g = got[name] if isinstance(got[name], tuple) else (got[name],)
+        w = want[name] if isinstance(want[name], tuple) else (want[name],)
+        assert all(torch.equal(a, b) for a, b in zip(g, w)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
+def test_commit_on_card_matches_native(cuda, curve_name):
+    """commitment_key(curve, 40).commit on CUDA == the native Pippenger."""
+    from vdf_tpu_torch.native import msm_native_affine
+    from vdf_tpu_torch.nova import commitment_key
+
+    c = get_curve(curve_name)
+    ck = commitment_key(curve_name, 40, device=cuda)
+    q = c.scalar.params.modulus
+    vals = [int(v) % q for v in np.random.default_rng(12).integers(0, 1 << 63, size=40)]
+    pt = ck.commit(c.scalar.encode(vals, cuda))
+    got = c.to_affine_ints(type(pt)(*(v[None] for v in pt)))[0]
+    assert got == msm_native_affine(curve_name, c.to_affine_ints(ck.gens), vals)

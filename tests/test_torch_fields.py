@@ -18,6 +18,11 @@ from vdf_tpu_torch.fields import FP, FQ, get_field, get_int_field, limbs_to_int
 from vdf_tpu_torch.fields.ops import from_digits, resolve, to_digits
 from vdf_tpu_torch.utils import TEST_SEED, XorShiftRng, field_random
 
+# The plain versions are many small tensor ops: one intra-op thread runs
+# them fastest, and test workers sharing the cores do not oversubscribe
+# them (with a thread pool per worker they ran ~10x slower under load).
+torch.set_num_threads(1)
+
 FIELDS = [("Fq", FQ), ("Fp", FP)]
 N = 24
 

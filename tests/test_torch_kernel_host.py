@@ -22,6 +22,11 @@ from vdf_tpu_torch import _build
 from vdf_tpu_torch.fields import FIELDS, get_field
 from vdf_tpu_torch.fields.kernels import minroot_eval_plain, minroot_inverse_plain
 
+# The plain versions are many small tensor ops: one intra-op thread runs
+# them fastest, and test workers sharing the cores do not oversubscribe
+# them (with a thread pool per worker they ran ~10x slower under load).
+torch.set_num_threads(1)
+
 HOST_SHIM = r"""
 #include <cstdint>
 #define __device__
@@ -62,7 +67,7 @@ def host_kernels(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel bodies as host code")
     d = tmp_path_factory.mktemp("host_kernels")
-    (d / "minroot_consts.h").write_text(_build.constants_header())
+    (d / _build.CONSTS_HEADER).write_text(_build.constants_header())
     (d / "shim.cpp").write_text(HOST_SHIM)
     so = d / "libhost_kernels.so"
     proc = subprocess.run(

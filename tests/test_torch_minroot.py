@@ -34,6 +34,11 @@ from vdf_tpu_torch.minroot import (
 )
 from vdf_tpu_torch.utils import TEST_SEED, XorShiftRng, field_random
 
+# The plain versions are many small tensor ops: one intra-op thread runs
+# them fastest, and test workers sharing the cores do not oversubscribe
+# them (with a thread pool per worker they ran ~10x slower under load).
+torch.set_num_threads(1)
+
 VDFS = [
     ("pallas", pallas_vdf, jax_pallas_vdf, FQ),
     ("vesta", vesta_vdf, jax_vesta_vdf, FP),

@@ -1,12 +1,15 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-``load_kernels()`` compiles ``csrc/*.cu`` for ``sm_90a`` into one shared
-library with a plain C interface, at first use, under
+``load_kernels()`` compiles ``csrc/*.cu`` for ``sm_90a`` (one nvcc a
+source, in parallel) and links them into one shared library with a
+plain C interface, at first use, under
 ``vdf_tpu_torch/_build/<key>/`` (git-ignored), where ``<key>`` hashes the
 sources, the generated constants header and the compiler flags, so an
-edit rebuilds and an unchanged tree reuses the library.  The field
-constants reach the kernels through ``minroot_consts.h``, generated from
-fields/params.py, so Python and CUDA share one source of truth.
+edit rebuilds and an unchanged tree reuses the library.  The field and
+curve constants reach the kernels through ``vdf_consts.h``, generated
+from fields/params.py and curves/point.py, so Python and CUDA share one
+source of truth.  ``LAUNCHERS`` lists every C launcher with its ctypes
+argument types.
 
 A missing ``nvcc`` or a failed compile raises ``KernelError`` carrying
 the compiler's output; nothing falls back to the plain versions.
@@ -23,6 +26,7 @@ import shutil
 import subprocess
 import time
 
+from .curves.point import B3
 from .errors import KernelError
 from .fields.params import FIELDS, NLIMBS, int_to_limbs
 
@@ -31,11 +35,14 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 DEFAULT_CUDA_HOME = pathlib.Path("/usr/local/cuda")
 FIELD_INDEX = {"Fp": 0, "Fq": 1}  # the kernels' field argument
+CONSTS_HEADER = "vdf_consts.h"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in build.log
 ]
+NVCC_LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
+NVCC_TIMEOUT_S = 600  # a compile still running then is killed and reported
 
 
 def find_nvcc() -> str:
@@ -58,9 +65,10 @@ def _c_array(v: int) -> str:
 
 
 def constants_header() -> str:
-    """minroot_consts.h: per-field constants and inv_alpha window digits,
-    in FIELD_INDEX order."""
-    consts, digits = [], []
+    """vdf_consts.h: per-field constants (modulus, 2p, Montgomery one,
+    -1/p mod 2^32), inv_alpha window digits, and per-field curve constants
+    (3b = 15 in Montgomery form, R^2 mod p), in FIELD_INDEX order."""
+    consts, digits, curve = [], [], []
     for name in sorted(FIELD_INDEX, key=FIELD_INDEX.get):
         P = FIELDS[name]
         consts.append(
@@ -68,6 +76,7 @@ def constants_header() -> str:
             f"{_c_array(P.mont_one)}, 0x{P.pinv32:08x}u}}"
         )
         digits.append("{" + ", ".join(map(str, P.inv_alpha_digits)) + "}")
+        curve.append(f"{{{_c_array(P.to_mont(B3))}, {_c_array(P.r * P.r % P.modulus)}}}")
     n_digits = {len(FIELDS[n].inv_alpha_digits) for n in FIELD_INDEX}
     assert len(n_digits) == 1 and NLIMBS == 8
     return "\n".join([
@@ -76,6 +85,7 @@ def constants_header() -> str:
         f"#define VDF_N_DIGITS {n_digits.pop()}",
         "#define VDF_FIELD_CONSTS_INIT {" + ", ".join(consts) + "}",
         "#define VDF_DIGITS_INIT {" + ", ".join(digits) + "}",
+        "#define VDF_CURVE_CONSTS_INIT {" + ", ".join(curve) + "}",
         "",
     ])
 
@@ -89,8 +99,24 @@ def build_key() -> str:
     for path in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(constants_header().encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+_P = ctypes.c_void_p  # a device pointer or a stream
+_I = ctypes.c_int
+_L = ctypes.c_int64
+# Every C launcher: name -> argument types.  Each returns a cudaError_t.
+LAUNCHERS = {
+    "vdf_minroot_eval": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P],
+    "vdf_minroot_inverse": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P],
+    "vdf_canon_digits": [_I, _P, _P, _L, _L, _L, _P],
+    "vdf_canon_mont": [_I, _P, _P, _L, _P],
+    "vdf_shift_gens": [_I, _P, _P, _L, _P],
+    "vdf_scan": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P],
+    "vdf_colscan": [_I, _P, _P, _P, _P, _P, _L, _L, _P],
+    "vdf_bucket": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P],
+}
 
 
 class Kernels:
@@ -101,10 +127,9 @@ class Kernels:
         self.build_seconds = build_seconds  # 0.0 when the library was reused
         self.log = log
         lib = ctypes.CDLL(str(lib_path))
-        vp = ctypes.c_void_p
-        for fn in (lib.vdf_minroot_eval, lib.vdf_minroot_inverse):
-            fn.argtypes = [ctypes.c_int, vp, vp, vp, vp, vp, vp,
-                           ctypes.c_int64, ctypes.c_int64, vp]
+        for name, argtypes in LAUNCHERS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.vdf_error_string.argtypes = [ctypes.c_int]
         lib.vdf_error_string.restype = ctypes.c_char_p
@@ -113,26 +138,64 @@ class Kernels:
     def error_string(self, err: int) -> str:
         return f"CUDA error {err}: {self.lib.vdf_error_string(err).decode()}"
 
+    def launch(self, name: str, device, *args) -> None:
+        """Call launcher ``name`` with ``args`` and the current stream of the
+        CUDA ``device``; raise KernelError if CUDA refused the launch."""
+        import torch
+
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(self.lib, name)(*args, stream)
+        if err:
+            raise KernelError(f"{name} launch failed: {self.error_string(err)}")
+
+
+def _run_all(cmds: list[list[str]]) -> tuple[str, list[int]]:
+    """Run the commands at once; their joined logs and exit codes.  A
+    command still running at NVCC_TIMEOUT_S is killed (exit code -1)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    deadline = time.monotonic() + NVCC_TIMEOUT_S
+    logs, codes = [], []
+    for cmd, proc in zip(cmds, procs):
+        try:
+            out, _ = proc.communicate(timeout=max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            out += f"\n(killed after {NVCC_TIMEOUT_S} s)"
+        logs.append(f"$ {' '.join(cmd)}\n{out}")
+        codes.append(proc.returncode if proc.returncode is not None else -1)
+    return "".join(logs), codes
+
 
 def build(out_dir: pathlib.Path) -> tuple[pathlib.Path, float, str]:
-    """Compile the sources into out_dir (reusing a finished library)."""
+    """Compile the sources into out_dir (reusing a finished library): one
+    nvcc a source, all started together, then one link."""
     lib_path = out_dir / "libvdf_kernels.so"
     log_path = out_dir / "build.log"
     if lib_path.is_file():
         return lib_path, 0.0, log_path.read_text() if log_path.is_file() else ""
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "minroot_consts.h").write_text(constants_header())
-    tmp = out_dir / f"libvdf_kernels.{os.getpid()}.tmp.so"
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-I", str(out_dir),
-           "-o", str(tmp), *map(str, _sources())]
+    (out_dir / CONSTS_HEADER).write_text(constants_header())
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in _sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC_DIR), "-I", str(out_dir),
+                 "-o", str(obj), str(src)] for src, obj in zip(_sources(), objs)]
+    tmp = out_dir / f"libvdf_kernels.{tag}.so"
+    link = [nvcc, *NVCC_LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log, codes = _run_all(compiles)
+    if not any(codes):
+        link_log, codes = _run_all([link])
+        log += link_log
     seconds = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if any(codes):
         tmp.unlink(missing_ok=True)
-        raise KernelError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        raise KernelError(f"nvcc failed (exit codes {codes}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     return lib_path, seconds, log

@@ -48,15 +48,13 @@
 
 #include <cstdint>
 
-#include "field.cuh"
-#include "minroot_consts.h"  // generated from fields/params.py at build
+#include "consts.cuh"  // FIELD_CONSTS; vdf_consts.h, generated at build
 
 namespace vdf {
 
 constexpr int BLOCK = 64;
 constexpr int TABLE = 16;  // 2^WINDOW entries
 
-__constant__ FieldConsts FIELD_CONSTS[2] = VDF_FIELD_CONSTS_INIT;  // Fp, Fq
 __constant__ unsigned char INV_ALPHA_DIGITS[2][VDF_N_DIGITS] = VDF_DIGITS_INIT;
 
 __device__ __forceinline__ void load_lane(uint32_t r[NL], const uint32_t* src,

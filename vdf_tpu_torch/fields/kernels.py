@@ -63,17 +63,8 @@ def _launch(name: str, field_name: str, x, y, i, t: int):
     outs = [torch.empty_like(a) for a in (x, y, i)]
     if x.shape[0] == 0:
         return tuple(outs)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(kernels.lib, f"vdf_{name}")(
-            FIELD_INDEX[field_name],
-            *(a.data_ptr() for a in (x, y, i, *outs)),
-            x.shape[0],
-            t,
-            stream,
-        )
-    if err:
-        raise KernelError(f"{name} launch failed: {kernels.error_string(err)}")
+    kernels.launch(f"vdf_{name}", x.device, FIELD_INDEX[field_name],
+                   *(a.data_ptr() for a in (x, y, i, *outs)), x.shape[0], t)
     LAUNCHES[name] += 1
     return tuple(outs)
 

@@ -8,9 +8,9 @@ The arithmetic is exact integer code that runs on any device.  Inside,
 an element is split into 16 half-limbs of 16 bits held in ``int64``
 ("digits", shape ``(..., 16)``): a digit product is below 2^32, a
 schoolbook column of 16 of them below 2^36, so every sum is exact in
-int64.  Carries are resolved in parallel (three folding passes, then a
-Kogge-Stone prefix over generate/propagate flags), so an op costs a few
-dozen tensor ops whatever the batch size.  The ``*16`` methods work on
+int64.  Carries are resolved in parallel (three folding passes, then one
+integer addition over the digits' generate/propagate bits, ``resolve``),
+so an op costs a few dozen tensor ops whatever the batch size.  The ``*16`` methods work on
 digits and are what the plain MinRoot loops (fields/kernels.py) chain,
 so a t-round loop converts in and out once.
 
@@ -57,21 +57,30 @@ def _shift_up(v: torch.Tensor, d: int) -> torch.Tensor:
     return torch.nn.functional.pad(v[..., :-d], (d, 0))
 
 
+@functools.cache
+def _bit_weights(n: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(positions 0..n-1, 2^position), int64 on device."""
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    return pos, torch.ones_like(pos) << pos
+
+
 def resolve(v: torch.Tensor, folds: int = 3) -> torch.Tensor:
     """Carry-resolve nonnegative digits to canonical digits (< 2^16); the
     value is kept modulo 2^(16 * v.shape[-1]).  Each fold takes digits
     below 2^(16 + k) to below 2^16 + 2^k: three folds suffice for digits
-    below 2^40, four for digits below 2^62."""
+    below 2^40, four for digits below 2^62.  The digits are then at most
+    2^16: digit i generates a carry iff it is 2^16 and propagates one iff
+    it is 2^16 - 1.  With those flags as the bits of G and P, the carry
+    into digit i is bit i of ((G | P) + G) ^ P, the carry chain of one
+    binary addition whose bits generate and propagate alike."""
+    assert v.shape[-1] < 63  # G | P and its carry out fit in int64
     for _ in range(folds):  # -> digits <= 2^16
         v = (v & _DMASK) + _shift_up(v >> 16, 1)
-    g = v >> 16  # digit overflows whatever its carry-in (0/1)
-    p = (v == _DMASK).to(torch.int64)  # overflows iff it has a carry-in
-    d = 1
-    while d < v.shape[-1]:
-        g = g | (p & _shift_up(g, d))
-        p = p & _shift_up(p, d)
-        d *= 2
-    return (v + _shift_up(g, 1)) & _DMASK
+    pos, weight = _bit_weights(v.shape[-1], v.device)
+    gen = ((v >> 16) * weight).sum(-1, keepdim=True)
+    prop = ((v == _DMASK).to(torch.int64) * weight).sum(-1, keepdim=True)
+    carry_in = ((((gen | prop) + gen) ^ prop) >> pos) & 1
+    return (v + carry_in) & _DMASK
 
 
 class _DeviceConsts:
@@ -86,6 +95,8 @@ class _DeviceConsts:
         self.p = t(_digits_of(p))
         self.pinv = t(_digits_of(params.pinv))
         self.one = t(_digits_of(params.mont_one))
+        self.int_one = t(_digits_of(1))  # mul16(a, int_one) = a / R: leaves Montgomery form
+        self.r2 = t(_digits_of(params.r * params.r % p))  # mul16(a, r2) = a * R: enters it
         self.comp = {  # 2^256 - k*p: adding it carries out iff v >= k*p
             k: t(_digits_of((1 << 256) - k * p)) for k in (1, 2)
         }
@@ -209,9 +220,27 @@ class Field:
         """Reduce any 256-bit limb vector to its canonical value < p."""
         return from_digits(self.canon16(to_digits(a)))
 
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        return from_digits(self.sub16(torch.zeros_like(to_digits(a)), self.canon16(to_digits(a))))
+
     def eq(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Lane-wise equality of the field values (bool over ``...``)."""
         return (self.canon(a) == self.canon(b)).all(dim=-1)
+
+    def is_zero(self, a: torch.Tensor) -> torch.Tensor:
+        return (self.canon(a) == 0).all(dim=-1)
+
+    def from_mont(self, a: torch.Tensor) -> torch.Tensor:
+        """Montgomery limbs (any 256-bit pattern) -> canonical integer limbs
+        (< p) of the value they hold: a / R mod p."""
+        d = self.canon16(to_digits(a))
+        return from_digits(self.mul16(d, self.consts(a.device).int_one.expand_as(d)))
+
+    def to_mont(self, a: torch.Tensor) -> torch.Tensor:
+        """Integer limbs (any 256-bit pattern) -> canonical Montgomery limbs
+        of that integer mod p: a * R mod p."""
+        d = self.canon16(to_digits(a))
+        return from_digits(self.mul16(d, self.consts(a.device).r2.expand_as(d)))
 
     # ------------------------------------------------------------------
     # host-side conversions (exact Python ints)

@@ -1,4 +1,5 @@
-"""Carry MinRoot state between the JAX package and the port.
+"""Carry MinRoot state, curve points and commitment keys between the JAX
+package and the port.
 
 The JAX package holds a field element as ``(..., 17)`` uint32 radix-2^16
 limbs in Montgomery form with ``R = 2^272`` (possibly a lazy value below
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .curves import CURVES, Point, get_curve
 from .fields import get_field
 from .minroot.vdf import State
 
@@ -63,3 +65,26 @@ def state_from_jax(field_name: str, x, y, i, device="cpu") -> State:
 def state_to_jax(field_name: str, s: State) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Port ``State`` -> JAX state leaves as numpy arrays."""
     return tuple(to_jax(field_name, a) for a in s)
+
+
+def point_from_jax(curve_name: str, point, device="cpu") -> Point:
+    """JAX ``Point`` ((..., 17) coordinate arrays, numpy or jax) -> port
+    ``Point``: the same projective triple, coordinate by coordinate."""
+    field_name = CURVES[curve_name].base_field
+    return Point(*(from_jax(field_name, np.asarray(a), device) for a in point))
+
+
+def point_to_jax(curve_name: str, p: Point) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Port ``Point`` -> JAX coordinate arrays (x, y, z) as numpy."""
+    field_name = CURVES[curve_name].base_field
+    return tuple(to_jax(field_name, a) for a in p)
+
+
+def commitment_key_from_jax(ck, device="cpu"):
+    """A JAX ``CommitmentKey`` -> the port's, with the same generators and
+    blinding point (read through its ``curve``, ``gens`` and ``h``)."""
+    from .nova.pedersen import CommitmentKey
+
+    name = ck.curve.params.name
+    return CommitmentKey(get_curve(name), point_from_jax(name, ck.gens, device),
+                         point_from_jax(name, ck.h, device))
