@@ -88,7 +88,8 @@ def test_constants_header_matches_params():
         assert w[0:8] == int_to_limbs(15 * P.r % P.modulus).tolist()  # 3b, Montgomery
         assert w[8:16] == int_to_limbs(P.r * P.r % P.modulus).tolist()  # R^2 mod p
     assert _build.build_key() == _build.build_key()
-    assert set(_build.LAUNCHERS) >= {"vdf_minroot_eval", "vdf_scan", "vdf_bucket"}
+    assert set(_build.LAUNCHERS) >= {"vdf_minroot_eval", "vdf_scan", "vdf_bucket", "vdf_horner"}
+    assert len(_build.LAUNCHERS["vdf_canon_digits"]) == 8  # the layout flag before the stream
 
 
 @pytest.mark.parametrize("name", ["Fp", "Fq"])
@@ -167,8 +168,36 @@ def test_kernels_canonicalise_any_limbs_on_card(cuda):
         assert all(torch.equal(a, b) for a, b in zip(got, plain("Fq", ones, ones, ones, 1)))
 
 
+def test_default_device_raises_without_a_card(monkeypatch):
+    """No entry point falls back to the CPU: with no CUDA device a call
+    that names no device raises, and naming the CPU still works."""
+    import vdf_tpu_torch
+    from vdf_tpu_torch import commitment_key, pallas_vdf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(KernelError, match="no CUDA device"):
+        vdf_tpu_torch.default_device()
+    with pytest.raises(KernelError, match="no CUDA device"):
+        pallas_vdf().state_from_ints(x=1)
+    with pytest.raises(KernelError, match="no CUDA device"):
+        get_field("Fq").encode([1, 2])
+    with pytest.raises(KernelError, match="no CUDA device"):
+        get_curve("pallas").generator()
+    with pytest.raises(KernelError, match="no CUDA device"):
+        commitment_key("pallas", 4)
+    assert pallas_vdf().state_from_ints(x=1, device="cpu").x.device.type == "cpu"
+
+
+@pytest.mark.gpu
+def test_default_device_is_the_card(cuda):
+    from vdf_tpu_torch import pallas_vdf
+
+    s = pallas_vdf().state_from_ints(x=1)
+    assert all(a.device == cuda for a in s)
+
+
 # ---------------------------------------------------------------------
-# the fixed-base commit kernels K3-K7 (curves/kernels.py)
+# the bucket-accumulation kernels K3-K7 and K9 (curves/kernels.py)
 # ---------------------------------------------------------------------
 
 
@@ -178,24 +207,27 @@ def commit_inputs(curve_name: str, n: int, k: int, rows: int, device="cpu"):
     c = get_curve(curve_name)
     params = CURVES[curve_name]
     gens = stack_point(c.from_affine_ints(
-        hash_to_curve_ints(curve_name, n, domain=b"vdf_tpu/t"))).contiguous()
+        hash_to_curve_ints(curve_name, n, domain=b"vdf_tpu/t"), device="cpu")).contiguous()
     table = CK.shift_gens_plain(params.base_field, gens)
     q = c.scalar.params.modulus
     nrng = np.random.default_rng(11)
     vals = [int(v) % q for v in nrng.integers(0, 1 << 63, size=k * n)]
     vals[:3] = [0, 1, q - 1][: k * n]
-    s = c.scalar.encode(vals).reshape(k, n, 8)
+    s = c.scalar.encode(vals, device="cpu").reshape(k, n, 8)
     _, m_pad = layout(n, rows)
     keys = torch.sort(CK.canon_digits_plain(params.scalar_field, s, m_pad), -1).values
     return tuple(a.to(device) for a in (gens, table, s, keys))
 
 
 def commit_stages(bf: str, sf: str, gens, table, s, keys, rows: int, plain: bool):
-    """Every K3-K7 stage on the same inputs, through the wrappers or their
-    plain versions."""
+    """Every K3-K7 and K9 stage on the same inputs, through the wrappers or
+    their plain versions.  K9's window sums are the table's rows, (n, W, 3, 8);
+    K3's window-row layout pads each row by one key."""
     fns = {name: getattr(CK, name + ("_plain" if plain else "")) for name in (
         "canon_digits", "canon_mont", "shift_gens", "bucket_scan", "column_carries",
-        "bucket_sums")}
+        "bucket_sums", "horner")}
+    n = gens.shape[0]
+    window_sums = table.reshape(CK.WINDOWS, n, 3, 8).transpose(0, 1).contiguous()
     ints = gens[:, 0].contiguous()
     scan = fns["bucket_scan"](bf, table, keys, rows)
     carries = fns["column_carries"](bf, scan[2], scan[3])
@@ -206,6 +238,8 @@ def commit_stages(bf: str, sf: str, gens, table, s, keys, rows: int, plain: bool
         "scan": scan,
         "colscan": carries,
         "bucket": fns["bucket_sums"](bf, scan[0], scan[1], carries),
+        "canon_digits_rows": fns["canon_digits"](sf, s, n + 1, True),
+        "horner": fns["horner"](bf, window_sums),
     }
 
 
@@ -246,13 +280,16 @@ def _bad_commit_calls():
                                                tail_col, carries),
         "bucket_device": lambda: CK.bucket_sums("Fp", tails.to("meta"), tail_col.to("meta"),
                                                 carries.to("meta")),
+        "digits_rows_m_pad": lambda: CK.canon_digits("Fq", s, 2, True),
+        "horner_windows": lambda: CK.horner("Fp", table[None, :21].contiguous()),
+        "horner_dtype": lambda: CK.horner("Fp", table[None, :22].to(torch.int64)),
     }
 
 
 BAD_COMMIT_CALLS = [
     "digits_dtype", "digits_m_pad", "digits_rank", "mont_width", "gens_strided", "gens_field",
     "scan_rows", "scan_keys_dtype", "scan_not_tensor", "colscan_flags", "bucket_width",
-    "bucket_device",
+    "bucket_device", "digits_rows_m_pad", "horner_windows", "horner_dtype",
 ]
 
 
@@ -269,14 +306,14 @@ def test_commit_wrappers_reject_malformed_input(case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
 def test_commit_kernels_match_plain_on_card(cuda, curve_name):
-    """K3 (both modes), K4, K5, K6 and K7 on the card vs their plain
-    versions on the same CUDA tensors (K = 2, n = 6, rows = 5: a ragged
-    last column); each launch counted once."""
+    """K3 (both modes, both key layouts), K4, K5, K6, K7 and K9 on the card
+    vs their plain versions on the same CUDA tensors (K = 2, n = 6, rows = 5:
+    a ragged last column); each launch counted once."""
     params = CURVES[curve_name]
     ins = commit_inputs(curve_name, 6, 2, 5, device=cuda)
     CK.reset_launches()
     got = commit_stages(params.base_field, params.scalar_field, *ins, 5, plain=False)
-    assert set(CK.LAUNCHES.values()) == {1}
+    assert CK.LAUNCHES == {**dict.fromkeys(CK.LAUNCHES, 1), "canon_digits": 2}
     want = commit_stages(params.base_field, params.scalar_field, *ins, 5, plain=True)
     for name in got:
         g = got[name] if isinstance(got[name], tuple) else (got[name],)
@@ -298,3 +335,22 @@ def test_commit_on_card_matches_native(cuda, curve_name):
     pt = ck.commit(c.scalar.encode(vals, cuda))
     got = c.to_affine_ints(type(pt)(*(v[None] for v in pt)))[0]
     assert got == msm_native_affine(curve_name, c.to_affine_ints(ck.gens), vals)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
+def test_msm_on_card_matches_native(cuda, curve_name):
+    """msm on CUDA (K3 window rows, K4-K6, K9) == the native Pippenger at
+    n = 45 (three columns, the last ragged)."""
+    from vdf_tpu_torch.curves import msm
+    from vdf_tpu_torch.native import msm_native_affine
+
+    c, n = get_curve(curve_name), 45
+    pts = hash_to_curve_ints(curve_name, n, domain=b"vdf_tpu/t")
+    q = c.scalar.params.modulus
+    vals = [int(v) % q for v in np.random.default_rng(13).integers(0, 1 << 63, size=n)]
+    CK.reset_launches()
+    pt = msm(c, c.from_affine_ints(pts), c.scalar.encode(vals))
+    assert CK.LAUNCHES["horner"] == 1 and CK.LAUNCHES["scan"] == 1
+    got = c.to_affine_ints(type(pt)(*(v[None] for v in pt)))[0]
+    assert got == msm_native_affine(curve_name, pts, vals)

@@ -67,8 +67,8 @@ def commit_rows(curve_name: str, n: int, rows: list[list[int]]):
     """The rows committed as one batch, in affine, each checked against
     both native Pippengers."""
     c = get_curve(curve_name)
-    s = c.scalar.encode([v for r in rows for v in r]).reshape(len(rows), n, 8)
-    got = c.to_affine_ints(commitment_key(curve_name, n).commit_batch(s))
+    s = c.scalar.encode([v for r in rows for v in r], device="cpu").reshape(len(rows), n, 8)
+    got = c.to_affine_ints(commitment_key(curve_name, n, device="cpu").commit_batch(s))
     gens = generators(curve_name, n)
     for row, g in zip(rows, got):
         assert g == msm_native_affine(curve_name, gens, row)
@@ -109,7 +109,7 @@ def test_batch_rows_equal_single_commits(curve_name):
     returns the canonical limbs, and row 1, whose last three scalars are
     zero, through CommitmentKey.commit of the unpadded five."""
     c, n = get_curve(curve_name), 8
-    s = c.scalar.encode(random_scalars(curve_name, 2 * n, seed=21)).reshape(2, n, 8)
+    s = c.scalar.encode(random_scalars(curve_name, 2 * n, seed=21), device="cpu").reshape(2, n, 8)
     s[1, 5:] = 0
     batch = stack_point(commit_fixed_batch(curve_name, s))
     pt, canon = commit_fixed(curve_name, s[0])
@@ -117,7 +117,7 @@ def test_batch_rows_equal_single_commits(curve_name):
     assert torch.equal(canon, c.field.from_mont(batch[0]))
     canon_ints = [int.from_bytes(r.numpy().astype("<u4").tobytes(), "little") for r in canon]
     assert canon_ints == c.field.decode(batch[0])
-    ck = commitment_key(curve_name, n)
+    ck = commitment_key(curve_name, n, device="cpu")
     assert torch.equal(stack_point(ck.commit(s[1, :5])), batch[1])
     with pytest.raises(ValueError):
         ck.commit(torch.zeros(n + 1, 8, dtype=torch.int32))
@@ -126,9 +126,9 @@ def test_batch_rows_equal_single_commits(curve_name):
 @pytest.mark.parametrize("curve_name", CURVES)
 def test_commit_with_blind_matches_intcurve(curve_name):
     c, ic, n = get_curve(curve_name), get_int_curve(curve_name), 8
-    ck = commitment_key(curve_name, n)
+    ck = commitment_key(curve_name, n, device="cpu")
     vals = random_scalars(curve_name, n + 1, seed=31)
-    got = ck.commit(c.scalar.encode(vals[:n]), blind=c.scalar.encode(vals[n]))
+    got = ck.commit(c.scalar.encode(vals[:n], device="cpu"), blind=c.scalar.encode(vals[n], device="cpu"))
     pts = derive_generators(curve_name, n)  # n generators, then h
     want = ic.scalar_mul(ic.from_affine(pts[n]), vals[n])
     for g, v in zip(pts[:n], vals):
@@ -141,7 +141,7 @@ def test_shifted_table_matches_intcurve_doubling_chain(curve_name):
     """K7's plain version: item w n + i = 2^(12 w) G_i, the same
     projective triple as 12 w IntCurve doublings."""
     c, ic, n = get_curve(curve_name), get_int_curve(curve_name), 8
-    table = commitment_key(curve_name, n).table
+    table = commitment_key(curve_name, n, device="cpu").table
     assert table.shape == (CK.WINDOWS * n, 3, 8)
     got = list(zip(*(c.field.decode(table[:, k]) for k in range(3))))
     for i, g in enumerate(generators(curve_name, n)):
@@ -161,7 +161,7 @@ def test_window_digits_match_ints(curve_name):
     q = c.scalar.params.modulus
     vals = random_scalars(curve_name, n, seed=41)
     vals[:2] = [0, q - 1]
-    s = c.scalar.encode(vals)
+    s = c.scalar.encode(vals, device="cpu")
     s[2] = -1  # limbs 2^256 - 1: the scalar (2^256 - 1) / R mod q
     vals[2] = ((1 << 256) - 1) * pow(c.scalar.params.r, -1, q) % q
     want = [[(v >> (12 * w)) & 0xFFF for w in range(CK.WINDOWS)] for v in vals]
@@ -181,10 +181,10 @@ def test_commit_matches_jax_commitment_key(curve_name):
     tests/test_curves.py compiles)."""
     n = 5
     jck = jax_commitment_key(curve_name, n)
-    ck = interop.commitment_key_from_jax(jck)
+    ck = interop.commitment_key_from_jax(jck, device="cpu")
     c, jc = get_curve(curve_name), jax_get_curve(curve_name)
     vals = random_scalars(curve_name, n, seed=51)
     want = jc.to_affine_ints(JaxPoint(*(v[None] for v in jck.commit(jc.scalar.encode(vals)))))
-    got = c.to_affine_ints(Point(*(v[None] for v in ck.commit(c.scalar.encode(vals)))))
+    got = c.to_affine_ints(Point(*(v[None] for v in ck.commit(c.scalar.encode(vals, device="cpu")))))
     assert got == want
     assert got[0] is not None

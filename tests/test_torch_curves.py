@@ -48,7 +48,7 @@ def pairs(curve_name: str):
 
 def port_point(curve_name: str, trips) -> Point:
     f = get_curve(curve_name).field
-    return Point(*(f.encode([tr[k] for tr in trips]) for k in range(3)))
+    return Point(*(f.encode([tr[k] for tr in trips], device="cpu") for k in range(3)))
 
 
 def port_triples(curve_name: str, p: Point):
@@ -73,7 +73,7 @@ def jax_triples(curve_name: str, p: JaxPoint):
 def test_interop_round_trips_points(curve_name):
     t = triples(curve_name)
     jp = jax_point(curve_name, t)
-    p = interop.point_from_jax(curve_name, jp)
+    p = interop.point_from_jax(curve_name, jp, device="cpu")
     assert port_triples(curve_name, p) == t
     back = interop.point_to_jax(curve_name, p)
     assert jax_triples(curve_name, JaxPoint(*back)) == t
@@ -115,7 +115,7 @@ def test_edge_cases_and_predicates(curve_name):
     assert c.eq(p, q).tolist() == want_eq
     assert np.asarray(jc.eq(jp, jq)).tolist() == want_eq
     assert c.eq(p, p).all()
-    assert c.is_identity(c.double(c.identity((2,)))).all()
+    assert c.is_identity(c.double(c.identity((2,), device="cpu"))).all()
     sel = c.select(torch.tensor([True, False] * 3 + [True]), p, q)
     assert port_triples(curve_name, sel) == [a if k % 2 == 0 else b
                                              for k, (a, b) in enumerate(zip(ps, qs))]
@@ -125,10 +125,10 @@ def test_edge_cases_and_predicates(curve_name):
 def test_generator_and_affine_round_trip(curve_name):
     c = get_curve(curve_name)
     p = c.field.params.modulus
-    assert c.to_affine_ints(c.generator((1,))) == [(p - 1, 2)]
+    assert c.to_affine_ints(c.generator((1,), device="cpu")) == [(p - 1, 2)]
     aff = hash_to_curve_ints(curve_name, 3, domain=b"vdf_tpu/t")
-    assert c.to_affine_ints(c.from_affine_ints(aff)) == aff
-    assert c.to_affine_ints(c.identity((2,))) == [None, None]
+    assert c.to_affine_ints(c.from_affine_ints(aff, device="cpu")) == aff
+    assert c.to_affine_ints(c.identity((2,), device="cpu")) == [None, None]
 
 
 @pytest.mark.parametrize("curve_name", CURVES)
@@ -144,9 +144,9 @@ def test_scalar_mul_bits_matches_jax_and_ints(curve_name):
     want = jax_triples(curve_name, jc.scalar_mul_bits(jc.generator((1,)), jbits))
     ks = [k, 0, 1, (1 << 64) - 1]
     bits = torch.tensor([[(v >> b) & 1 for v in ks] for b in range(64)], dtype=torch.uint8)
-    got = c.scalar_mul_bits(c.generator((len(ks),)), bits)
+    got = c.scalar_mul_bits(c.generator((len(ks),), device="cpu"), bits)
     assert port_triples(curve_name, got)[:1] == want
-    g = ic.from_affine(c.to_affine_ints(c.generator((1,)))[0])
+    g = ic.from_affine(c.to_affine_ints(c.generator((1,), device="cpu"))[0])
     assert c.to_affine_ints(got) == [ic.to_affine(ic.scalar_mul(g, v)) for v in ks]
 
 
@@ -154,12 +154,12 @@ def test_scalar_mul_bits_matches_jax_and_ints(curve_name):
 def test_hash_to_curve_and_key_generators_match_jax(curve_name):
     assert hash_to_curve_ints(curve_name, 8) == jax_hash_to_curve_ints(curve_name, 8)
     n = 5
-    ck, jck = commitment_key(curve_name, n), jax_commitment_key(curve_name, n)
+    ck, jck = commitment_key(curve_name, n, device="cpu"), jax_commitment_key(curve_name, n)
     jc = jax_get_curve(curve_name)
     c = get_curve(curve_name)
     assert c.to_affine_ints(ck.gens) == jc.to_affine_ints(jck.gens)
     h = Point(*(v[None] for v in ck.h))
     assert c.to_affine_ints(h) == jc.to_affine_ints(JaxPoint(*(v[None] for v in jck.h)))
-    carried = interop.commitment_key_from_jax(jck)
+    carried = interop.commitment_key_from_jax(jck, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(carried.gens, ck.gens))
     assert all(torch.equal(a, b) for a, b in zip(carried.h, ck.h))

@@ -59,7 +59,7 @@ def _canonical_rows(t: torch.Tensor, p: int) -> bool:
 def test_binary_ops_vs_int_oracle_and_jax(fields, op):
     name, P, f, fi = fields
     a, b = inputs(P.modulus, seed=1)
-    got_t = getattr(f, op)(f.encode(a), f.encode(b))
+    got_t = getattr(f, op)(f.encode(a, device="cpu"), f.encode(b, device="cpu"))
     assert _canonical_rows(got_t, P.modulus)
     got = f.decode(got_t)
     assert got == [getattr(fi, op)(x, y) for x, y in zip(a, b)]
@@ -70,12 +70,12 @@ def test_binary_ops_vs_int_oracle_and_jax(fields, op):
 def test_sqr_pow_vs_int_oracle_and_jax(fields):
     name, P, f, fi = fields
     a, _ = inputs(P.modulus, seed=2)
-    ta = f.encode(a)
+    ta = f.encode(a, device="cpu")
     jf = jax_get_field(name)
     sq = f.decode(f.sqr(ta))
     assert sq == [fi.sqr(x) for x in a] == jf.decode(jf.sqr(jf.encode(a)))
     few = a[:6]
-    assert f.decode(f.pow(f.encode(few), P.inv_alpha)) == [
+    assert f.decode(f.pow(f.encode(few, device="cpu"), P.inv_alpha)) == [
         pow(x, P.inv_alpha, P.modulus) for x in few
     ]
 
@@ -86,7 +86,7 @@ def test_corner_values(fields):
     c = corner_values(P.modulus)
     a = [x for x in c for _ in c]
     b = [y for _ in c for y in c]
-    ta, tb = f.encode(a), f.encode(b)
+    ta, tb = f.encode(a, device="cpu"), f.encode(b, device="cpu")
     for op in ("add", "sub", "mul"):
         out = getattr(f, op)(ta, tb)
         assert _canonical_rows(out, P.modulus)
@@ -98,11 +98,11 @@ def test_encode_decode_montgomery_limbs(fields):
     """encode gives the u32 limbs of a * 2^256 mod p as int32 bit patterns."""
     _, P, f, _ = fields
     a, _ = inputs(P.modulus, seed=3)
-    t = f.encode(a)
+    t = f.encode(a, device="cpu")
     assert t.dtype == torch.int32 and t.shape == (len(a), 8)
     assert [limbs_to_int(r) for r in t.numpy()] == [(v << 256) % P.modulus for v in a]
     assert f.decode(t) == a
-    one = f.encode(a[1])  # an int gives one (8,) element
+    one = f.encode(a[1], device="cpu")  # an int gives one (8,) element
     assert one.shape == (8,) and f.decode(one) == a[1]
 
 
@@ -117,7 +117,7 @@ def test_canon_and_eq_on_noncanonical_limbs(fields):
     assert [limbs_to_int(r) for r in f.canon(t).numpy()] == [v % p for v in raw]
     shifted = f.canon(t)
     assert bool(f.eq(t, shifted).all())
-    assert not bool(f.eq(t, f.add(shifted, f.one().expand_as(shifted))).any())
+    assert not bool(f.eq(t, f.add(shifted, f.one(device="cpu").expand_as(shifted))).any())
 
 
 def test_resolve_matches_integer_carry():
@@ -144,10 +144,10 @@ def test_interop_round_trip(fields):
     a, b = inputs(P.modulus, seed=4)
     jf = jax_get_field(name)
     jx, jy, ji = (np.asarray(jf.encode(v)) for v in (a, b, a[::-1]))
-    s = interop.state_from_jax(name, jx, jy, ji)
+    s = interop.state_from_jax(name, jx, jy, ji, device="cpu")
     assert f.decode(s.x) == a and f.decode(s.y) == b
-    assert torch.equal(s.x, f.encode(a))
+    assert torch.equal(s.x, f.encode(a, device="cpu"))
     for got, want in zip(interop.state_to_jax(name, s), (jx, jy, ji)):
         assert got.dtype == want.dtype and np.array_equal(got, want)
-    one = interop.from_jax(name, np.asarray(jf.encode(a[5])))
+    one = interop.from_jax(name, np.asarray(jf.encode(a[5])), device="cpu")
     assert one.shape == (8,) and f.decode(one) == a[5]

@@ -98,7 +98,7 @@ def seeded_state(name: str, lanes: int, seed: int):
     f = get_field(name)
     vals = [[int(v) % p for v in nrng.integers(0, 1 << 63, size=lanes)] for _ in range(3)]
     vals[0][:4] = [0, 1, p - 1, (1 << 256) % p]
-    return vals, tuple(f.encode(v) for v in vals)
+    return vals, tuple(f.encode(v, device="cpu") for v in vals)
 
 
 @pytest.mark.parametrize("name", ["Fp", "Fq"])

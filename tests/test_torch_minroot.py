@@ -76,7 +76,7 @@ def test_plain_kernels_match_jax_eval(vdfs):
     name = P.name
     xs, ys, is_ = seeded_lanes(P, 16, seed=5)
     js = jvdf.state_from_ints(xs, ys, is_)
-    s = interop.state_from_jax(name, *(np.asarray(a) for a in js))
+    s = interop.state_from_jax(name, *(np.asarray(a) for a in js), device="cpu")
     t = 3
     got = minroot_eval_plain(name, *s, t)
     jr = jvdf.eval(js, t)
@@ -94,11 +94,11 @@ def test_plain_kernels_match_jax_eval(vdfs):
 def test_round_and_inverse_round_match_plain_kernels(vdfs):
     vdf, _, P = vdfs
     xs, ys, is_ = seeded_lanes(P, 4, seed=6)
-    s = vdf.state_from_ints(xs, ys, is_)
+    s = vdf.state_from_ints(xs, ys, is_, device="cpu")
     one = vdf.round(s)
     assert all(torch.equal(a, b) for a, b in zip(one, minroot_eval_plain(P.name, *s, 1)))
     assert all(torch.equal(a, b) for a, b in zip(vdf.inverse_round(one), s))
-    x = vdf.field.encode(xs)
+    x = vdf.field.encode(xs, device="cpu")
     assert torch.equal(vdf.inverse_step(vdf.forward_step(x)), x)
 
 
@@ -110,7 +110,7 @@ def test_eval_roundtrip_matches_jax_t10():
     pairs = [(field_random(rng, P.modulus), field_random(rng, P.modulus)) for _ in range(3)]
     xs, ys = [x for x, _ in pairs], [y for _, y in pairs]
     t = 10
-    s = vdf.state_from_ints(xs, ys, [0] * 3)
+    s = vdf.state_from_ints(xs, ys, [0] * 3, device="cpu")
     z0, proof = Evaluation.eval(vdf, s, t)
     jz0, jproof = JaxEvaluation.eval(jvdf, jvdf.state_from_ints(xs, ys, [0] * 3), t)
     assert [vdf.field.decode(a) for a in z0] == [jvdf.field.decode(a) for a in jz0]
@@ -127,7 +127,7 @@ def test_append_chain_matches_jax(vdfs):
     vdf, jvdf, P = vdfs
     rng = XorShiftRng(TEST_SEED)
     x = field_random(rng, P.modulus)
-    s0 = vdf.state_from_ints(x, 0, 0)
+    s0 = vdf.state_from_ints(x, 0, 0, device="cpu")
     t, n = 4, 3
     _, acc = Evaluation.eval(vdf, s0, t)
     for _ in range(1, n):
@@ -146,10 +146,10 @@ def test_append_chain_matches_jax(vdfs):
 
 def test_append_rejects_tampered_result(vdfs):
     vdf, _, _ = vdfs
-    s0 = vdf.state_from_ints(777, 0, 0)
+    s0 = vdf.state_from_ints(777, 0, 0, device="cpu")
     _, proof = Evaluation.eval(vdf, s0, 4)
     bogus = Evaluation(
-        result=vdf.state_from_ints(1, 2, 3), t=4, field_name=proof.field_name, mode=proof.mode
+        result=vdf.state_from_ints(1, 2, 3, device="cpu"), t=4, field_name=proof.field_name, mode=proof.mode
     )
     assert proof.append(bogus) is None
     flipped = proof.result.x.clone()
@@ -161,9 +161,9 @@ def test_append_rejects_tampered_result(vdfs):
 
 def test_verify_rejects_wrong_original(vdfs):
     vdf, jvdf, _ = vdfs
-    s0 = vdf.state_from_ints(777, 0, 0)
+    s0 = vdf.state_from_ints(777, 0, 0, device="cpu")
     _, proof = Evaluation.eval(vdf, s0, 4)
-    assert not proof.verify(vdf.state_from_ints(778, 0, 0))
+    assert not proof.verify(vdf.state_from_ints(778, 0, 0, device="cpu"))
     _, jproof = JaxEvaluation.eval(jvdf, jvdf.state_from_ints(777, 0, 0), 4)
     assert not jproof.verify(jvdf.state_from_ints(778, 0, 0))
 
@@ -171,7 +171,7 @@ def test_verify_rejects_wrong_original(vdfs):
 def test_modes_label_one_trace():
     """Every EvalMode labels the same trace (one kernel schedule)."""
     vdf = pallas_vdf()
-    s = vdf.state_from_ints(99999, 12345, 0)
+    s = vdf.state_from_ints(99999, 12345, 0, device="cpu")
     results = {m: Evaluation.eval_with_mode(m, vdf, s, 1) for m in EvalMode.all()}
     ints = {vdf.state_to_ints(e.result) for e in results.values()}
     assert len(ints) == 1
@@ -182,7 +182,7 @@ def test_modes_label_one_trace():
 def test_fused_keeps_leading_shape():
     vdf = vesta_vdf()
     xs = [[3, 4], [5, 6]]
-    s = State(*(vdf.field.encode(sum(xs, [])).reshape(2, 2, 8) for _ in range(3)))
+    s = State(*(vdf.field.encode(sum(xs, []), device="cpu").reshape(2, 2, 8) for _ in range(3)))
     out = eval_fused(vdf, s, 1)
     assert out.x.shape == (2, 2, 8)
     assert all(torch.equal(a, b) for a, b in zip(inverse_eval_fused(vdf, out, 1), s))

@@ -1,4 +1,4 @@
-"""The CUDA kernel bodies K3-K7, compiled as host C++ and run on the CPU.
+"""The CUDA kernel bodies K3-K7 and K9, compiled as host C++ and run on the CPU.
 
 ``csrc/msm_kernels.cuh`` and ``csrc/curve.cuh`` use no CUDA intrinsic, so
 with the CUDA qualifiers defined away and ``threadIdx``/``blockIdx``
@@ -56,10 +56,15 @@ static void grid(int64_t threads, int block, Body body) {
 }
 
 extern "C" void host_canon_digits(int f, const uint32_t* s, int64_t* keys, int64_t n,
-                                  int64_t count, int64_t m_pad) {
+                                  int64_t count, int64_t m_pad, int window_rows) {
   grid(count, CBLOCK, [&] {
-    (f ? canon_digits_kernel<1> : canon_digits_kernel<0>)(s, keys, n, count, m_pad);
+    (f ? canon_digits_kernel<1> : canon_digits_kernel<0>)(s, keys, n, count, m_pad,
+                                                          window_rows);
   });
+}
+
+extern "C" void host_horner(int f, const uint32_t* sums, uint32_t* out, int64_t batch) {
+  grid(batch, PBLOCK, [&] { (f ? horner_kernel<1> : horner_kernel<0>)(sums, out, batch); });
 }
 
 extern "C" void host_canon_mont(int f, const uint32_t* in, uint32_t* out, int64_t count) {
@@ -130,14 +135,21 @@ class HostKernels:
     def _p(a):
         return ctypes.c_void_p(a.ctypes.data)
 
-    def canon_digits(self, field, scalars, m_pad):
+    def canon_digits(self, field, scalars, m_pad, window_rows=False):
         s = np.ascontiguousarray(scalars.numpy())
         k, n = s.shape[:2]
-        keys = np.zeros((k, m_pad), dtype=np.int64)
+        keys = np.zeros((k, K.WINDOWS, m_pad) if window_rows else (k, m_pad), dtype=np.int64)
         self.lib.host_canon_digits(_build.FIELD_INDEX[field], self._p(s), self._p(keys),
                                    ctypes.c_int64(n), ctypes.c_int64(k * n),
-                                   ctypes.c_int64(m_pad))
+                                   ctypes.c_int64(m_pad), ctypes.c_int(int(window_rows)))
         return torch.from_numpy(keys)
+
+    def horner(self, field, sums):
+        v = np.ascontiguousarray(sums.numpy())
+        out = np.empty((v.shape[0], 3, 8), dtype=np.int32)
+        self.lib.host_horner(_build.FIELD_INDEX[field], self._p(v), self._p(out),
+                             ctypes.c_int64(v.shape[0]))
+        return torch.from_numpy(out)
 
     def canon_mont(self, field, values):
         v = np.ascontiguousarray(values.numpy())
@@ -218,7 +230,7 @@ def _scalars(curve_name: str, k: int, n: int, seed: int) -> torch.Tensor:
     rng = random.Random(seed)
     vals = [rng.randrange(q) for _ in range(k * n)]
     vals[:4] = [0, 1, q - 1, vals[4]]
-    return c.scalar.encode(vals).reshape(k, n, 8)
+    return c.scalar.encode(vals, device="cpu").reshape(k, n, 8)
 
 
 @pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
@@ -236,7 +248,7 @@ def test_commit_kernel_bodies_match_plain(host, curve_name):
     ints[0] = -1  # an all-ones limb pattern (2^256 - 1 > p) is reduced too
     mont = host.canon_mont(bf, ints)
     assert torch.equal(mont, K.canon_mont_plain(bf, ints))
-    gens = stack_point(get_curve(curve_name).from_affine_ints(pts)).contiguous()
+    gens = stack_point(get_curve(curve_name).from_affine_ints(pts, device="cpu")).contiguous()
     table = host.shift_gens(bf, gens)
     assert torch.equal(table, K.shift_gens_plain(bf, gens))
 
@@ -256,3 +268,28 @@ def test_commit_kernel_bodies_match_plain(host, curve_name):
     assert torch.equal(carries, K.column_carries_plain(bf, sums, flags))
     out = host.bucket_sums(bf, tails, tail_col, carries)
     assert torch.equal(out, K.bucket_sums_plain(bf, tails, tail_col, carries))
+
+
+@pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
+def test_msm_kernel_bodies_match_plain(host, curve_name):
+    """K3's window-row layout (n = 7 in rows of m_pad = 10: digit << 32 | i,
+    zero beyond n) and K9 (B = 3 rows of 22 window sums: table points, the
+    identity, an all-ones limb pattern) == plain, bit for bit."""
+    params = CURVES[curve_name]
+    bf, sf = params.base_field, params.scalar_field
+    n, k, m_pad = 7, 2, 10
+    s = _scalars(curve_name, k, n, seed=5)
+    s[0, 6] = -1
+    keys = host.canon_digits(sf, s, m_pad, window_rows=True)
+    want = K.canon_digits_plain(sf, s, m_pad, window_rows=True)
+    assert keys.shape == (k, K.WINDOWS, m_pad) and torch.equal(keys, want)
+    assert (keys[:, :, n:] == 0).all() and (keys[0, :, :n] & 0xFFFFFFFF).tolist() == [
+        list(range(n))] * K.WINDOWS
+
+    pts = hash_to_curve_ints(curve_name, 3, domain=b"vdf_tpu/t")
+    gens = stack_point(get_curve(curve_name).from_affine_ints(pts, device="cpu")).contiguous()
+    table = K.shift_gens_plain(bf, gens)  # (66, 3, 8): 2^(12 w) G_i, not all z = 1
+    sums = table.reshape(K.WINDOWS, 3, 3, 8).transpose(0, 1).contiguous()  # (3, W, 3, 8)
+    sums[1, 4] = K._identity_rows(bf, (), "cpu")
+    sums[2, 0, 0] = -1  # x = 2^256 - 1: reduced on load
+    assert torch.equal(host.horner(bf, sums), K.horner_plain(bf, sums))

@@ -22,10 +22,16 @@ class Block:
 
 sys.meta_path.insert(0, Block())
 import vdf_tpu_torch
-from vdf_tpu_torch import _build, curves, interop, native, nova
+from vdf_tpu_torch import _build, curves, device, interop, native, nova, poseidon, r1cs
 from vdf_tpu_torch.curves import bucket_msm, kernels
+from vdf_tpu_torch.curves.msm import msm, msm_layout
+from vdf_tpu_torch.nova import circuit, nifs, r1cs_device, snark
+from vdf_tpu_torch.poseidon import int_poseidon, params, permutation
+from vdf_tpu_torch.r1cs import cs, gadgets, witness
 
 assert vdf_tpu_torch.commitment_key is nova.commitment_key
+assert vdf_tpu_torch.msm is msm and curves.msm is msm and vdf_tpu_torch.NovaVDFProof is snark.NovaVDFProof
+assert vdf_tpu_torch.default_device is device.default_device
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("ok")

@@ -13,8 +13,8 @@ Top-level surface mirrors the reference's ``lib.rs`` exports
 (src/lib.rs:1-4) as far as this slice reaches.
 """
 
-from . import curves, fields, minroot, nova  # noqa: F401
-from .curves import Curve, Point, get_curve  # noqa: F401
+from . import curves, fields, minroot, nova, poseidon, r1cs  # noqa: F401
+from .curves import Curve, Point, get_curve, msm  # noqa: F401
 from .minroot import (  # noqa: F401
     EvalMode,
     Evaluation,
@@ -23,6 +23,7 @@ from .minroot import (  # noqa: F401
     pallas_vdf,
     vesta_vdf,
 )
+from .device import default_device  # noqa: F401
 from .errors import (  # noqa: F401
     KernelError,
     NovaError,
@@ -30,7 +31,13 @@ from .errors import (  # noqa: F401
     SynthesisError,
     VDFError,
 )
-from .nova import CommitmentKey, commitment_key  # noqa: F401
+from .nova import (  # noqa: F401
+    CommitmentKey,
+    NovaVDFProof,
+    commitment_key,
+    eval_and_make_circuits,
+    public_params,
+)
 from .utils import TEST_SEED  # noqa: F401
 
 # The reference declares Pallas the canonical instantiation

@@ -1,4 +1,4 @@
-// Launchers of the fixed-base commit kernels K3-K7 (msm_kernels.cuh).
+// Launchers of the bucket-accumulation kernels K3-K7 and K9 (msm_kernels.cuh).
 
 #include <cuda_runtime.h>
 
@@ -25,13 +25,15 @@ inline bool bad_field(int field) { return field != 0 && field != 1; }
 }  // namespace
 
 extern "C" int vdf_canon_digits(int field, const void* scalars, void* keys, int64_t n,
-                                int64_t count, int64_t m_pad, void* stream) {
-  if (bad_field(field) || n <= 0 || count % n != 0 || m_pad < vdf::WINDOWS * n)
+                                int64_t count, int64_t m_pad, int window_rows,
+                                void* stream) {
+  if (bad_field(field) || n <= 0 || count % n != 0 ||
+      m_pad < (window_rows ? n : vdf::WINDOWS * n))
     return (int)cudaErrorInvalidValue;
   if (count == 0) return (int)cudaSuccess;
   auto kernel = field == 0 ? vdf::canon_digits_kernel<0> : vdf::canon_digits_kernel<1>;
   kernel<<<grid_of(count, vdf::CBLOCK), vdf::CBLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)scalars, (int64_t*)keys, n, count, m_pad);
+      (const uint32_t*)scalars, (int64_t*)keys, n, count, m_pad, window_rows);
   return (int)cudaGetLastError();
 }
 
@@ -120,5 +122,16 @@ extern "C" int vdf_bucket(int field, const void* tails, const void* tail_col,
   if (err != cudaSuccess) return (int)err;
   final_<<<grid_of(batch, vdf::PBLOCK), vdf::PBLOCK, 0, s>>>((const uint32_t*)lvl2,
                                                               (uint32_t*)out, batch);
+  return (int)cudaGetLastError();
+}
+
+// K9: one thread a batch row of W window sums.
+extern "C" int vdf_horner(int field, const void* sums, void* out, int64_t batch,
+                          void* stream) {
+  if (bad_field(field)) return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return (int)cudaSuccess;
+  auto kernel = field == 0 ? vdf::horner_kernel<0> : vdf::horner_kernel<1>;
+  kernel<<<grid_of(batch, vdf::PBLOCK), vdf::PBLOCK, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)sums, (uint32_t*)out, batch);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,6 @@
-// The fixed-base Pedersen commit kernels K3-K7 for sm_90a.
+// The bucket-accumulation kernels K3-K7 and K9 for sm_90a: the fixed-base
+// Pedersen commit, and the variable-base MSM that reuses K3-K6 and ends in
+// K9.
 //
 // The commit of n scalars s_i against generators G_i is one bucket
 // accumulation over W * n items: item m = w * n + i carries the point
@@ -9,9 +11,13 @@
 // (:64-67); the layout below is the port's own.
 //
 //   K3  canon_digits_kernel   scalars -> canonical -> 22 window digits,
-//                             written window-major as int64 sort keys
-//                             digit << 32 | item (replaces _canon_kernel,
-//                             to_canonical mode); canon_mont_kernel puts
+//                             written as int64 sort keys digit << 32 | item
+//                             (replaces _canon_kernel, to_canonical mode),
+//                             in one of two layouts: window-major in one
+//                             row of W n items (the fixed-base commit), or
+//                             one row a window over the n unshifted points
+//                             (the variable-base MSM: each window is a
+//                             batch row of K4-K6).  canon_mont_kernel puts
 //                             canonical integers into Montgomery form (its
 //                             domain mode).  One thread a value.
 //   --  torch.sort of the keys (the JAX package sorts in XLA too).
@@ -45,12 +51,20 @@
 //   K7  shift_gens_kernel     table[w * n + i] = 2^(12 w) G_i: one thread a
 //                             generator, 12 doublings a window (replaces
 //                             _shift_gens_kernel).
+//   K9  horner_kernel         the variable-base MSM's last step: 22 window
+//                             sums S_w -> sum_w 2^(12 w) S_w, one thread a
+//                             batch row, from the top window down: 12
+//                             doublings, then one add (replaces
+//                             _horner_kernel, which ran the same chain on
+//                             one live element of an (8, 128) vreg).
 //
 // What bounds them on this card.  A point is 96 bytes and a complete add
 // ~14 Montgomery products, so every kernel here is bound by the latency of
 // dependent 32x32->64-bit multiply chains, not by memory: K4 does `rows`
 // dependent adds a thread, K5 one a level, K6 ~30 + ~45 + ~60 across its
-// levels, K7 264 doublings a thread.  The layout's lever is parallelism:
+// levels, K7 264 doublings a thread, K9 264 doublings and 22 adds on a
+// single thread (its 2.2 KB of input are nothing; a redesign has to cut the
+// chain, not the bytes).  The layout's lever is parallelism:
 // K4 has batch * cols threads (cols = ceil(22 n / rows)); the wrapper picks
 // rows, and so the cost split between K4 (depth rows) and K5 (depth
 // log2 cols).  No kernel uses atomics: each add has a fixed order, so each
@@ -122,12 +136,16 @@ __device__ __noinline__ void dbl_pt(Pt& r, const Pt& p) {
 // K3: canonical digits (mode 0) and Montgomery domain (mode 1)
 // ---------------------------------------------------------------------
 
-// scalars (count, 8) Montgomery over field K (count = batch * n) ->
-// keys[k * m_pad + w * n + i] = digit_w(s) << 32 | (w * n + i).
+// scalars (count, 8) Montgomery over field K (count = batch * n) -> keys.
+//   window_rows == 0: keys (batch, m_pad), m_pad >= W n,
+//     keys[k * m_pad + w * n + i] = digit_w(s) << 32 | (w * n + i);
+//   window_rows != 0: keys (batch, W, m_pad), m_pad >= n,
+//     keys[(k * W + w) * m_pad + i] = digit_w(s) << 32 | i.
+// Entries past the items stay as the caller filled them (0: digit 0, item 0).
 template <int K>
 __global__ void __launch_bounds__(CBLOCK)
     canon_digits_kernel(const uint32_t* __restrict__ scalars, int64_t* __restrict__ keys,
-                        int64_t n, int64_t count, int64_t m_pad) {
+                        int64_t n, int64_t count, int64_t m_pad, int window_rows) {
   const FieldConsts& F = FIELD_CONSTS[K];
   const int64_t g = (int64_t)blockIdx.x * CBLOCK + threadIdx.x;
   if (g >= count) return;
@@ -137,15 +155,19 @@ __global__ void __launch_bounds__(CBLOCK)
   for (int j = 0; j < NL; ++j) v[j] = scalars[g * NL + j];
   canon(v, F);               // any 256-bit pattern -> < p
   mont_mul(v, v, int_one, F);  // v / R: the canonical integer
-  int64_t* row = keys + k * m_pad;
+  int64_t* row = keys + k * m_pad * (window_rows ? WINDOWS : 1);
 #pragma unroll
   for (int w = 0; w < WINDOWS; ++w) {
     const int bit = w * WINDOW_BITS, limb = bit >> 5, off = bit & 31;
     uint32_t d = v[limb] >> off;
     if (off > 32 - WINDOW_BITS && limb + 1 < NL) d |= v[limb + 1] << (32 - off);
     d &= NB - 1;
-    const int64_t item = w * n + i;
-    row[item] = ((int64_t)d << 32) | item;
+    if (window_rows) {
+      row[w * m_pad + i] = ((int64_t)d << 32) | i;
+    } else {
+      const int64_t item = w * n + i;
+      row[item] = ((int64_t)d << 32) | item;
+    }
   }
 }
 
@@ -407,6 +429,36 @@ __global__ void __launch_bounds__(PBLOCK)
 #pragma unroll 1
   for (int s = 0; s < 4; ++s) dbl_pt<K>(acc, acc);
   add_pt<K>(acc, acc, a1);
+  store_pt(out, g, acc);
+}
+
+// ---------------------------------------------------------------------
+// K9: sum_w 2^(12 w) S_w a batch row
+// ---------------------------------------------------------------------
+
+// sums (batch, W, 3, 8), least significant window first -> out (batch, 3, 8).
+// One thread a batch row, from the identity: for w = W - 1 down to 0,
+// acc = 2^12 acc + S_w.  The complete formulas take the identity and equal
+// operands, so no case is special.
+template <int K>
+__global__ void __launch_bounds__(PBLOCK)
+    horner_kernel(const uint32_t* __restrict__ sums, uint32_t* __restrict__ out,
+                  int64_t batch) {
+  const FieldConsts& F = FIELD_CONSTS[K];
+  const int64_t g = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
+  if (g >= batch) return;
+  Pt acc, s;
+  set_identity(acc, F);
+#pragma unroll 1
+  for (int w = WINDOWS - 1; w >= 0; --w) {
+#pragma unroll 1
+    for (int b = 0; b < WINDOW_BITS; ++b) dbl_pt<K>(acc, acc);
+    load_pt(s, sums, g * WINDOWS + w);
+    canon(s.x, F);
+    canon(s.y, F);
+    canon(s.z, F);
+    add_pt<K>(acc, acc, s);
+  }
   store_pt(out, g, acc);
 }
 

@@ -13,6 +13,7 @@ from .point import (
 )
 from .int_ops import IDENTITY, IntCurve, IntPoint, get_int_curve
 from .bucket_msm import commit_fixed, commit_fixed_batch, digits_of_scalars, shifted_gens
+from .msm import msm
 
 __all__ = [
     "CURVES",
@@ -34,4 +35,5 @@ __all__ = [
     "commit_fixed_batch",
     "digits_of_scalars",
     "shifted_gens",
+    "msm",
 ]

@@ -79,7 +79,7 @@ def commit_table(curve_name: str, table: torch.Tensor, scalars: torch.Tensor) ->
     return bucket_sums(bf, tails, tail_col, carries)
 
 
-def shifted_gens(curve_name: str, n: int, device="cpu") -> torch.Tensor:
+def shifted_gens(curve_name: str, n: int, device=None) -> torch.Tensor:
     """The (W n, 3, 8) table of ``commitment_key(curve_name, n)`` (K7,
     cached with the key)."""
     from ..nova.pedersen import commitment_key

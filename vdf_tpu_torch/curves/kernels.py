@@ -1,4 +1,5 @@
-"""Fixed-base commit kernel wrappers K3-K7, their plain versions, counters.
+"""Bucket-accumulation kernel wrappers K3-K7 and K9, their plain versions,
+counters.
 
 Each wrapper checks its tensors and then, as fields/kernels.py does:
 
@@ -18,7 +19,11 @@ Layouts (int32 limb bit patterns, points stacked ``(..., 3, 8)``):
   canon_digits  K3 mode 0  scalars (K, n, 8) Montgomery over the scalar
                            field -> keys (K, m_pad) int64, item
                            m = w n + i holding digit_w(s_i) << 32 | m;
-                           items past W n are 0 (digit 0, item 0)
+                           items past W n are 0 (digit 0, item 0);
+                           with ``window_rows`` keys (K, W, m_pad), row w
+                           holding digit_w(s_i) << 32 | i for i < n and 0
+                           beyond: one batch row of K4-K6 a window, over
+                           the unshifted points (the variable-base MSM)
   canon_mont    K3 mode 1  integers (N, 8) -> Montgomery form (N, 8)
   shift_gens    K7         generators (n, 3, 8) -> table (W n, 3, 8),
                            item w n + i = 2^(12 w) G_i
@@ -28,6 +33,8 @@ Layouts (int32 limb bit patterns, points stacked ``(..., 3, 8)``):
   column_carries K5        col_sums, col_flags -> carries (K, cols, 3, 8)
   bucket_sums   K6         tails, tail_col, carries -> (K, 3, 8):
                            sum_b b B_b for each batch row
+  horner        K9         window sums (B, W, 3, 8), least significant
+                           first -> (B, 3, 8): sum_w 2^(12 w) S_w
 
 ``LAUNCHES`` counts wrapper calls that launched their kernel (K5 and K6
 launch several passes a call and count once).
@@ -60,6 +67,7 @@ LAUNCHES = {
     "scan": 0,
     "colscan": 0,
     "bucket": 0,
+    "horner": 0,
 }
 
 
@@ -131,24 +139,29 @@ def _identity_rows(field_name: str, shape: tuple, device) -> torch.Tensor:
 # ---------------------------------------------------------------------
 
 
-def canon_digits(field_name: str, scalars: torch.Tensor, m_pad: int) -> torch.Tensor:
+def canon_digits(field_name: str, scalars: torch.Tensor, m_pad: int,
+                 window_rows: bool = False) -> torch.Tensor:
     """K3 mode 0 (replaces pallas_msm._canon_kernel, to_canonical):
-    scalars (K, n, 8) over ``field_name`` -> window-major sort keys."""
+    scalars (K, n, 8) over ``field_name`` -> sort keys, (K, m_pad)
+    window-major, or (K, W, m_pad) with ``window_rows``."""
     device = _check(field_name, scalars=scalars)
     _check_shape("scalars", scalars, torch.int32, (None, None, NLIMBS))
     k, n = scalars.shape[:2]
-    if n < 1 or m_pad < WINDOWS * n:
-        raise KernelError(f"need n >= 1 and m_pad >= {WINDOWS} n, got n={n}, m_pad={m_pad}")
+    least = n if window_rows else WINDOWS * n
+    if n < 1 or m_pad < least:
+        raise KernelError(f"need n >= 1 and m_pad >= {least}, got n={n}, m_pad={m_pad}")
     if _device_kind(device) == "cpu":
-        return canon_digits_plain(field_name, scalars, m_pad)
-    keys = torch.zeros((k, m_pad), dtype=torch.int64, device=device)
+        return canon_digits_plain(field_name, scalars, m_pad, window_rows)
+    shape = (k, WINDOWS, m_pad) if window_rows else (k, m_pad)
+    keys = torch.zeros(shape, dtype=torch.int64, device=device)
     if k:
         _launch("vdf_canon_digits", "canon_digits", device, _field_index(field_name),
-                scalars.data_ptr(), keys.data_ptr(), n, k * n, m_pad)
+                scalars.data_ptr(), keys.data_ptr(), n, k * n, m_pad, int(window_rows))
     return keys
 
 
-def canon_digits_plain(field_name: str, scalars: torch.Tensor, m_pad: int) -> torch.Tensor:
+def canon_digits_plain(field_name: str, scalars: torch.Tensor, m_pad: int,
+                       window_rows: bool = False) -> torch.Tensor:
     k, n = scalars.shape[:2]
     limbs = get_field(field_name).from_mont(scalars.reshape(-1, NLIMBS))
     words = limbs.to(torch.int64) & 0xFFFFFFFF  # (k n, 8)
@@ -161,6 +174,9 @@ def canon_digits_plain(field_name: str, scalars: torch.Tensor, m_pad: int) -> to
             d = d | (words[:, limb + 1] << (32 - off))
         digits.append(d & (NB - 1))
     d = torch.stack(digits).reshape(WINDOWS, k, n).transpose(0, 1)  # (k, W, n)
+    if window_rows:
+        keys = (d << 32) | torch.arange(n, dtype=torch.int64, device=scalars.device)
+        return torch.nn.functional.pad(keys, (0, m_pad - n))
     items = torch.arange(WINDOWS * n, dtype=torch.int64, device=scalars.device)
     keys = (d << 32).reshape(k, WINDOWS * n) | items
     return torch.nn.functional.pad(keys, (0, m_pad - WINDOWS * n))
@@ -409,4 +425,36 @@ def bucket_sums_plain(field_name: str, tails: torch.Tensor, tail_col: torch.Tens
     for _ in range(4):
         acc = double16(field_name, acc)
     (acc,) = _add_many(field_name, (acc, a1))
+    return point_from_digits(acc)
+
+
+# ---------------------------------------------------------------------
+# K9: sum_w 2^(12 w) S_w
+# ---------------------------------------------------------------------
+
+
+def horner(field_name: str, sums: torch.Tensor) -> torch.Tensor:
+    """K9 (replaces pallas_msm._horner_kernel): window sums (B, W, 3, 8),
+    least significant window first -> (B, 3, 8), sum_w 2^(12 w) S_w: from
+    the identity, 12 doublings and one complete add a window, top down."""
+    device = _check(field_name, sums=sums)
+    _check_shape("sums", sums, torch.int32, (None, WINDOWS, 3, NLIMBS))
+    if _device_kind(device) == "cpu":
+        return horner_plain(field_name, sums)
+    b = sums.shape[0]
+    out = torch.empty((b, 3, NLIMBS), dtype=torch.int32, device=device)
+    if b:
+        _launch("vdf_horner", "horner", device, _field_index(field_name), sums.data_ptr(),
+                out.data_ptr(), b)
+    return out
+
+
+def horner_plain(field_name: str, sums: torch.Tensor) -> torch.Tensor:
+    f = get_field(field_name)
+    s16 = tuple(f.canon16(c) for c in point_to_digits(sums))  # each (B, W, 16)
+    acc = identity16(field_name, s16[0][:, 0])
+    for w in range(WINDOWS - 1, -1, -1):
+        for _ in range(WINDOW_BITS):
+            acc = double16(field_name, acc)
+        acc = add16(field_name, acc, _at(s16, w))
     return point_from_digits(acc)

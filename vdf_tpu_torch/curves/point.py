@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
 from ..fields import Field, get_field
 from ..fields.ops import from_digits, to_digits
 
@@ -170,20 +171,23 @@ class Curve:
     def _bcast(self, v: torch.Tensor, shape) -> torch.Tensor:
         return v.expand(*shape, v.shape[-1]).clone()
 
-    def identity(self, shape=(), device="cpu") -> Point:
+    def identity(self, shape=(), device=None) -> Point:
+        device = resolve_device(device)
         zero = torch.zeros(8, dtype=torch.int32, device=device)
         one = self.field.one(device)
         return Point(self._bcast(zero, shape), self._bcast(one, shape), self._bcast(zero, shape))
 
-    def generator(self, shape=(), device="cpu") -> Point:
+    def generator(self, shape=(), device=None) -> Point:
         """The pasta_curves generator (-1, 2): on both curves, since
         (-1)^3 + 5 = 4 = 2^2."""
+        device = resolve_device(device)
         f = self.field
         x = f.encode(f.params.modulus - 1, device)
         return Point(*(self._bcast(v, shape) for v in (x, f.encode(2, device), f.one(device))))
 
-    def from_affine_ints(self, coords: list[tuple[int, int]], device="cpu") -> Point:
+    def from_affine_ints(self, coords: list[tuple[int, int]], device=None) -> Point:
         """Host ints [(x, y), ...] -> batched projective points (z = 1)."""
+        device = resolve_device(device)
         f = self.field
         xs = f.encode([c[0] for c in coords], device)
         ys = f.encode([c[1] for c in coords], device)

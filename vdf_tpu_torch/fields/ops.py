@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .params import FIELDS, NLIMBS, FieldParams, int_to_limbs, window_digits
 
 ND = 2 * NLIMBS  # 16-bit digits per element
@@ -121,6 +122,7 @@ class Field:
     def __init__(self, params: FieldParams):
         self.params = params
         self._consts: dict[torch.device, _DeviceConsts] = {}
+        self._encoded: dict[tuple[torch.device, int], torch.Tensor] = {}
 
     def consts(self, device) -> _DeviceConsts:
         device = torch.device(device)
@@ -197,6 +199,31 @@ class Field:
     def one16(self, like: torch.Tensor) -> torch.Tensor:
         return self.consts(like.device).one.expand_as(like)
 
+    def dot16(self, a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+        """sum over batch axis ``dim`` of the Montgomery products a*b/R, for
+        at most 8 terms: the raw products are summed before one reduction.
+        Inputs < p; the REDC value is < (8 p^2 + R p) / R < 3p < 2^256, and
+        ``canon16`` makes it canonical."""
+        c = self.consts(a.device)
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        if shape[dim] > 8:
+            raise ValueError(f"dot16 sums at most 8 products, got {shape[dim]}")
+        t = self._conv(a, b, c).sum(dim)  # digits < 8 * 2^36
+        m = resolve(self._conv(t[..., :ND], c.pinv, c)[..., :ND], folds=4)
+        total = resolve(t + self._conv(m, c.p, c))  # digits < 2^40; value < 2^512
+        return self.canon16(total[..., ND:])
+
+    def reduce_wide16(self, v: torch.Tensor) -> torch.Tensor:
+        """Nonnegative digit sums (..., 16), each below 2^46 (up to 2^30
+        canonical values added digit by digit), -> their value mod p,
+        canonical.  The value is lo + hi 2^256 with hi < 2^32; hi 2^256 mod p
+        is the Montgomery product of hi and R^2 (mul16(hi, r2) = hi R)."""
+        c = self.consts(v.device)
+        wide = resolve(torch.nn.functional.pad(v, (0, 3)), folds=4)  # 19 digits, 304 bits
+        hi = torch.nn.functional.pad(wide[..., ND:], (0, ND - 3))
+        hi_r = self.mul16(hi, c.r2.expand_as(hi))
+        return self.cond_sub_p16(self.add16(self.canon16(wide[..., :ND]), hi_r))
+
     # ------------------------------------------------------------------
     # public ops on (..., 8) int32 canonical Montgomery elements
     # ------------------------------------------------------------------
@@ -219,6 +246,19 @@ class Field:
     def canon(self, a: torch.Tensor) -> torch.Tensor:
         """Reduce any 256-bit limb vector to its canonical value < p."""
         return from_digits(self.canon16(to_digits(a)))
+
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """a^(p-2): the inverse, and 0 for 0."""
+        return self.pow(a, self.params.modulus - 2)
+
+    def const_like(self, ref: torch.Tensor, k: int) -> torch.Tensor:
+        """The constant k (any int, reduced mod p) shaped and placed like
+        ``ref``; each (device, k) is encoded and copied over once."""
+        key = (ref.device, int(k) % self.params.modulus)
+        c = self._encoded.get(key)
+        if c is None:
+            c = self._encoded[key] = self.encode(key[1], ref.device)
+        return c.expand_as(ref)
 
     def neg(self, a: torch.Tensor) -> torch.Tensor:
         return from_digits(self.sub16(torch.zeros_like(to_digits(a)), self.canon16(to_digits(a))))
@@ -246,19 +286,20 @@ class Field:
     # host-side conversions (exact Python ints)
     # ------------------------------------------------------------------
 
-    def one(self, device="cpu") -> torch.Tensor:
+    def one(self, device=None) -> torch.Tensor:
         return self.encode(1, device)
 
-    def encode(self, values, device="cpu") -> torch.Tensor:
+    def encode(self, values, device=None) -> torch.Tensor:
         """Python int (or sequence of ints) -> Montgomery limbs: (8,) for
-        an int, (n, 8) for a sequence."""
+        an int, (n, 8) for a sequence, on ``device`` (None: the card,
+        ``default_device()``)."""
         p, to_mont = self.params.modulus, self.params.to_mont
         if isinstance(values, (int, np.integer)):
             arr = int_to_limbs(to_mont(int(values) % p))
         else:
             buf = b"".join(to_mont(int(v) % p).to_bytes(32, "little") for v in values)
             arr = np.frombuffer(buf, dtype="<u4").reshape(-1, NLIMBS)
-        return torch.from_numpy(arr.view(np.int32).copy()).to(device)
+        return torch.from_numpy(arr.view(np.int32).copy()).to(resolve_device(device))
 
     def decode(self, a: torch.Tensor):
         """Montgomery limbs -> canonical Python int(s): an int for (8,),

@@ -1,12 +1,15 @@
-"""Carry MinRoot state, curve points and commitment keys between the JAX
-package and the port.
+"""Carry MinRoot state, curve points, commitment keys and Nova folding
+state (instances, witnesses, whole proofs) between the JAX package and the
+port.
 
 The JAX package holds a field element as ``(..., 17)`` uint32 radix-2^16
 limbs in Montgomery form with ``R = 2^272`` (possibly a lazy value below
 2p); the port as ``(..., 8)`` int32 u32 limbs with ``R = 2^256``, canonical.
 The two meet only at canonical integers, so each direction decodes to
 Python ints and re-encodes.  Nothing here imports jax: the JAX side is
-plain numpy arrays.
+plain numpy arrays, or objects read through their attributes.  The
+``*_to_jax`` functions return plain tuples of numpy arrays in the field order
+of the JAX package's NamedTuples, for the caller to wrap.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ def ints_to_jax_limbs(field_name: str, values) -> np.ndarray:
     return np.frombuffer(buf, dtype="<u2").reshape(-1, JAX_NLIMBS).astype(np.uint32)
 
 
-def from_jax(field_name: str, limbs, device="cpu") -> torch.Tensor:
+def from_jax(field_name: str, limbs, device=None) -> torch.Tensor:
     """One JAX limb array -> port tensor of the same leading shape."""
     limbs = np.asarray(limbs)
     out = get_field(field_name).encode(jax_limbs_to_ints(field_name, limbs), device)
@@ -57,7 +60,7 @@ def to_jax(field_name: str, a: torch.Tensor) -> np.ndarray:
     return ints_to_jax_limbs(field_name, vals).reshape(*a.shape[:-1], JAX_NLIMBS)
 
 
-def state_from_jax(field_name: str, x, y, i, device="cpu") -> State:
+def state_from_jax(field_name: str, x, y, i, device=None) -> State:
     """JAX state leaves (numpy) -> port ``State``."""
     return State(*(from_jax(field_name, a, device) for a in (x, y, i)))
 
@@ -67,7 +70,7 @@ def state_to_jax(field_name: str, s: State) -> tuple[np.ndarray, np.ndarray, np.
     return tuple(to_jax(field_name, a) for a in s)
 
 
-def point_from_jax(curve_name: str, point, device="cpu") -> Point:
+def point_from_jax(curve_name: str, point, device=None) -> Point:
     """JAX ``Point`` ((..., 17) coordinate arrays, numpy or jax) -> port
     ``Point``: the same projective triple, coordinate by coordinate."""
     field_name = CURVES[curve_name].base_field
@@ -80,7 +83,7 @@ def point_to_jax(curve_name: str, p: Point) -> tuple[np.ndarray, np.ndarray, np.
     return tuple(to_jax(field_name, a) for a in p)
 
 
-def commitment_key_from_jax(ck, device="cpu"):
+def commitment_key_from_jax(ck, device=None):
     """A JAX ``CommitmentKey`` -> the port's, with the same generators and
     blinding point (read through its ``curve``, ``gens`` and ``h``)."""
     from .nova.pedersen import CommitmentKey
@@ -88,3 +91,81 @@ def commitment_key_from_jax(ck, device="cpu"):
     name = ck.curve.params.name
     return CommitmentKey(get_curve(name), point_from_jax(name, ck.gens, device),
                          point_from_jax(name, ck.h, device))
+
+
+# ---------------------------------------------------------------------
+# Nova folding state.  ``curve_name`` is the commitment curve; scalars (x,
+# u, w, e) live in its scalar field.
+# ---------------------------------------------------------------------
+
+
+def r1cs_instance_from_jax(curve_name: str, inst, device=None):
+    """A JAX ``R1CSInstance`` (comm_w, x) -> the port's."""
+    from .nova.nifs import R1CSInstance
+
+    sf = CURVES[curve_name].scalar_field
+    return R1CSInstance(point_from_jax(curve_name, inst.comm_w, device),
+                        from_jax(sf, inst.x, device))
+
+
+def r1cs_instance_to_jax(curve_name: str, inst):
+    """The port's ``R1CSInstance`` -> ((x, y, z), x) numpy arrays."""
+    sf = CURVES[curve_name].scalar_field
+    return point_to_jax(curve_name, inst.comm_w), to_jax(sf, inst.x)
+
+
+def relaxed_instance_from_jax(curve_name: str, inst, device=None):
+    """A JAX ``RelaxedInstance`` (comm_w, comm_e, x, u) -> the port's."""
+    from .nova.nifs import RelaxedInstance
+
+    sf = CURVES[curve_name].scalar_field
+    return RelaxedInstance(point_from_jax(curve_name, inst.comm_w, device),
+                           point_from_jax(curve_name, inst.comm_e, device),
+                           from_jax(sf, inst.x, device), from_jax(sf, inst.u, device))
+
+
+def relaxed_instance_to_jax(curve_name: str, inst):
+    """The port's ``RelaxedInstance`` -> (comm_w, comm_e, x, u) numpy arrays."""
+    sf = CURVES[curve_name].scalar_field
+    return (point_to_jax(curve_name, inst.comm_w), point_to_jax(curve_name, inst.comm_e),
+            to_jax(sf, inst.x), to_jax(sf, inst.u))
+
+
+def relaxed_witness_from_jax(curve_name: str, wit, device=None):
+    """A JAX ``RelaxedWitness`` (w, e) -> the port's."""
+    from .nova.nifs import RelaxedWitness
+
+    sf = CURVES[curve_name].scalar_field
+    return RelaxedWitness(from_jax(sf, wit.w, device), from_jax(sf, wit.e, device))
+
+
+def relaxed_witness_to_jax(curve_name: str, wit):
+    """The port's ``RelaxedWitness`` -> (w, e) numpy arrays."""
+    sf = CURVES[curve_name].scalar_field
+    return to_jax(sf, wit.w), to_jax(sf, wit.e)
+
+
+def nova_proof_from_jax(curve_name: str, proof, device=None):
+    """A JAX ``NovaVDFProof`` (snark.step_instances, snark.U, snark.W,
+    comm_ts) -> the port's."""
+    from .nova.snark import NovaVDFProof, RecursiveSNARK
+
+    snark = proof.snark
+    return NovaVDFProof(
+        RecursiveSNARK([r1cs_instance_from_jax(curve_name, u, device)
+                        for u in snark.step_instances],
+                       relaxed_instance_from_jax(curve_name, snark.U, device),
+                       relaxed_witness_from_jax(curve_name, snark.W, device)),
+        [point_from_jax(curve_name, t, device) for t in proof.comm_ts])
+
+
+def nova_proof_to_jax(curve_name: str, proof) -> dict:
+    """The port's ``NovaVDFProof`` -> {"step_instances", "U", "W", "comm_ts"}
+    of numpy tuples, as the ``*_to_jax`` functions above give them."""
+    snark = proof.snark
+    return {
+        "step_instances": [r1cs_instance_to_jax(curve_name, u) for u in snark.step_instances],
+        "U": relaxed_instance_to_jax(curve_name, snark.U),
+        "W": relaxed_witness_to_jax(curve_name, snark.W),
+        "comm_ts": [point_to_jax(curve_name, t) for t in proof.comm_ts],
+    }

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
 from ..fields import Field, get_field
 
 
@@ -107,9 +108,10 @@ class MinRootVDF:
 
     # -- host-side conveniences -------------------------------------------
 
-    def state_from_ints(self, x, y=0, i=0, device="cpu") -> State:
+    def state_from_ints(self, x, y=0, i=0, device=None) -> State:
         """Ints give a single-lane state of (8,) tensors; equal-length
-        sequences give (lanes, 8)."""
+        sequences give (lanes, 8).  ``device=None`` is the card."""
+        device = resolve_device(device)
         f = self.field
         return State(f.encode(x, device), f.encode(y, device), f.encode(i, device))
 

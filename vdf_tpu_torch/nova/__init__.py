@@ -1,3 +1,31 @@
+from .circuit import InverseMinRootCircuit, inverse_round_gadget
+from .nifs import NIFS, R1CSInstance, RelaxedInstance, RelaxedWitness
 from .pedersen import DEFAULT_LABEL, CommitmentKey, commitment_key, derive_generators
+from .r1cs_device import DeviceMatrix, DeviceShape
+from .snark import (
+    NovaVDFProof,
+    PublicParams,
+    RecursiveSNARK,
+    eval_and_make_circuits,
+    public_params,
+)
 
-__all__ = ["DEFAULT_LABEL", "CommitmentKey", "commitment_key", "derive_generators"]
+__all__ = [
+    "DEFAULT_LABEL",
+    "CommitmentKey",
+    "commitment_key",
+    "derive_generators",
+    "InverseMinRootCircuit",
+    "inverse_round_gadget",
+    "NIFS",
+    "R1CSInstance",
+    "RelaxedInstance",
+    "RelaxedWitness",
+    "DeviceMatrix",
+    "DeviceShape",
+    "NovaVDFProof",
+    "PublicParams",
+    "RecursiveSNARK",
+    "eval_and_make_circuits",
+    "public_params",
+]

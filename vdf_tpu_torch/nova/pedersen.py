@@ -23,6 +23,7 @@ from ..curves import Curve, Point, get_curve, hash_to_curve_ints
 from ..curves.bucket_msm import commit_table
 from ..curves.kernels import canon_mont, shift_gens
 from ..curves.point import stack_point, unstack_point
+from ..device import resolve_device
 from ..fields import NLIMBS
 
 DEFAULT_LABEL = b"vdf_tpu/ck"  # the JAX package's commitment_key label
@@ -105,7 +106,8 @@ def _key(curve_name: str, n: int, label: bytes, device: str) -> CommitmentKey:
 
 
 def commitment_key(curve_name: str, n: int, label: bytes = DEFAULT_LABEL,
-                   device="cpu") -> CommitmentKey:
+                   device=None) -> CommitmentKey:
     """The key of n hash-derived generators and a blinding generator, on
-    ``device`` (cached; ``CommitmentKey.table`` is built at first use)."""
-    return _key(curve_name, n, label, str(torch.device(device)))
+    ``device`` (None: the card; cached; ``CommitmentKey.table`` is built at
+    first use)."""
+    return _key(curve_name, n, label, str(resolve_device(device)))
