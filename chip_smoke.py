@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py   # takes no options; needs one card
 
-Main paths: MinRoot over Fq, t = 2^14 on 8,192 lanes; fixed-base commits at
+Main paths: MinRoot over Fq, t = 2^16 on 8,192 lanes; fixed-base commits at
 n = 2^14; the variable-base MSM at n = 2^20; the single-curve Nova folding
 engine at t = 1000 iterations a step, 2 steps.
 
@@ -11,11 +11,15 @@ Phases (any failure exits non-zero; nothing is caught):
 
   1. build   compile csrc/*.cu for sm_90a with nvcc and load them;
   2. kernels K1 (minroot_eval) and K2 (minroot_inverse) against their plain
-             PyTorch versions on the card, on Fp and Fq, 1,024 lanes of
-             xorshift inputs at t = 4: bit-for-bit equal on every lane;
-             then, on Fq at the main path's 8,192 lanes, each kernel's
-             time beside its plain version's, and the two outputs
-             bit-for-bit equal on every lane;
+             PyTorch versions on the card, on Fp and Fq, at 1,024 lanes of
+             xorshift inputs (t = 4) and at the ragged lane counts 1, 33
+             and 8,191 (t = 1): bit-for-bit equal on every lane; then, on
+             Fq at the main path's 8,192 lanes, each kernel's time (K1 at
+             t = 4, K2 at t = 64) beside its plain version's, the two
+             outputs bit-for-bit equal on every lane; then each kernel's
+             bound at the main shape (t = 2^16) with the multiplies a round
+             it counts, beside one launch's time (K2's here; K1's launch at
+             that shape is phase 3's eval, and its time is read there);
   3. main    pallas_vdf() -> Evaluation.eval(vdf, s0, t) -> proof.verify(s0)
              on CUDA tensors, a tampered proof that must fail, and a
              two-segment append that must verify; lanes 0, 1 and the last
@@ -82,9 +86,11 @@ import sys
 import time
 
 LANES = 8192  # main-path lanes (BASELINE configs 1 and 4)
-T = 1 << 14  # main-path rounds (a quarter of BASELINE config 1's 2^16)
+T = 1 << 16  # main-path rounds (BASELINE configs 1 and 4, uncut)
 CHECK_LANES = 1024  # kernel-vs-plain lanes
 CHECK_T = 4  # kernel-vs-plain rounds (the plain K1 costs ~0.3 s a round)
+RAGGED_LANES = (1, 33, 8191)  # lane counts that fill no warp, one and a bit, all but one
+RAGGED_T = 1  # kernel-vs-plain rounds at the ragged lane counts
 T_APPEND = 1024  # rounds of the appended second segment
 COMMIT_N = 1 << 14  # commit length: the bench IVC's (t = 32) _commit_pad, both curves
 COMMIT_CHECK_N = 256  # kernel-vs-plain commit length
@@ -101,11 +107,16 @@ ENGINE_STEPS = 2  # Nova steps
 # rate, SMS x INT32_LANES x the SM clock nvidia-smi reports as its maximum.
 HBM_BYTES_PER_S = 3.35e12
 SMS, INT32_LANES = 132, 64
-# One Montgomery product (csrc/field.cuh, CIOS on 8 u32 limbs): 128 wide
-# multiply-adds of 32 x 32 -> 64 bits, two int32 instructions each, and 8 low
-# products; additions and carries are left out, so the bound is a lower one.
-MADS_PER_PRODUCT = 2 * 128 + 8
-PRODUCTS_ADD, PRODUCTS_DBL = 14, 9  # complete add, doubling (csrc/curve.cuh)
+# What a Montgomery product needs on 8 u32 limbs with the Pasta primes' shape
+# (csrc/field.cuh): 64 wide multiply-adds of 32 x 32 -> 64 bits for a b (36
+# for a squaring: the off-diagonal terms once, then the diagonal) and 24 for
+# the reduction (three nonzero middle limbs of p a row), two int32
+# dispatch slots each; additions and carries are left out, so the bound is a
+# lower one.
+MADS_PER_PRODUCT = 2 * (64 + 24)
+MADS_PER_SQUARING = 2 * (36 + 24)
+# (squarings, products) of a complete add and of a doubling (csrc/curve.cuh)
+PRODUCTS_ADD, PRODUCTS_DBL = (0, 14), (2, 7)
 
 COMMIT_KERNELS = {  # launch counter -> (wrapper in curves/kernels.py, TPU kernel it replaces)
     "canon_digits": ("canon_digits", "vdf_tpu/curves/pallas_msm.py:130"),  # K3 mode 0
@@ -162,45 +173,52 @@ def _tensor_bytes(*items) -> int:
     return total
 
 
-def _minroot_products(field_name: str, forward: bool) -> int:
-    """Montgomery products of one MinRoot round a lane: the w = 4 windowed
-    5th root (14 for the table, 4 squarings a digit after the first, one
-    product a nonzero digit), or x^5 (3)."""
+def _minroot_products(field_name: str, forward: bool) -> tuple[int, int]:
+    """(squarings, products) of one MinRoot round a lane: the w = 4 windowed
+    5th root (the table of 14 powers, 7 of them squarings; 4 squarings a
+    digit after the first; one product a nonzero digit), or x^5 (2, 1)."""
     from vdf_tpu_torch.fields import FIELDS
 
     if not forward:
-        return 3
+        return 2, 1
     digits = FIELDS[field_name].inv_alpha_digits
-    return 14 + 4 * (len(digits) - 1) + sum(1 for d in digits[1:] if d)
+    return 7 + 4 * (len(digits) - 1), 7 + sum(1 for d in digits[1:] if d)
 
 
-def _kernel_products(kname: str, args, out) -> int:
-    """Montgomery products the kernel's function needs on these inputs
-    (data-dependent kernels count what this data needs)."""
+def _point_ops(adds: int, doublings: int) -> tuple[int, int]:
+    return (adds * PRODUCTS_ADD[0] + doublings * PRODUCTS_DBL[0],
+            adds * PRODUCTS_ADD[1] + doublings * PRODUCTS_DBL[1])
+
+
+def _kernel_products(kname: str, args, out) -> tuple[int, int]:
+    """(squarings, products) in Montgomery form that the kernel's function
+    needs on these inputs (data-dependent kernels count what this data
+    needs)."""
     from vdf_tpu_torch.curves import kernels as CK
 
     if kname in ("minroot_eval", "minroot_inverse"):
         field_name, x, _, _, t = args
-        return x.shape[0] * t * _minroot_products(field_name, kname == "minroot_eval")
+        squarings, products = _minroot_products(field_name, kname == "minroot_eval")
+        return squarings * x.shape[0] * t, products * x.shape[0] * t
     if kname == "canon_digits":
-        return args[1].shape[0] * args[1].shape[1]
+        return 0, args[1].shape[0] * args[1].shape[1]
     if kname == "canon_mont":
-        return args[1].shape[0]
+        return 0, args[1].shape[0]
     if kname == "shift_gens":
-        return args[1].shape[0] * (CK.WINDOWS - 1) * CK.WINDOW_BITS * PRODUCTS_DBL
+        return _point_ops(0, args[1].shape[0] * (CK.WINDOWS - 1) * CK.WINDOW_BITS)
     if kname == "scan":  # one add an item that continues a run inside its column
         keys, rows = args[2], args[3]
         d = (keys >> 32).reshape(keys.shape[0], -1, rows)
-        return int((d[:, :, 1:] == d[:, :, :-1]).sum().item()) * PRODUCTS_ADD
+        return _point_ops(int((d[:, :, 1:] == d[:, :, :-1]).sum().item()), 0)
     if kname == "colscan":  # one add a column after the first that holds no run's head
-        return int((args[2][:, 1:] == 0).sum().item()) * PRODUCTS_ADD
+        return _point_ops(int((args[2][:, 1:] == 0).sum().item()), 0)
     if kname == "bucket":  # carries, then the three radix-16 levels
         k = args[1].shape[0]
         adds = int((args[2] >= 0).sum().item()) + k * (256 * 29 + 16 * 44 + 60)
-        return adds * PRODUCTS_ADD + k * 8 * PRODUCTS_DBL
+        return _point_ops(adds, k * 8)
     if kname == "horner":
         b = args[1].shape[0]
-        return b * CK.WINDOWS * (CK.WINDOW_BITS * PRODUCTS_DBL + PRODUCTS_ADD)
+        return _point_ops(b * CK.WINDOWS, b * CK.WINDOWS * CK.WINDOW_BITS)
     raise SystemExit(f"no operation count for kernel {kname}")
 
 
@@ -209,7 +227,8 @@ def _bound(kname: str, args, out, clock_hz: float) -> dict:
     once and each output written once at the memory rate, or the function's
     multiply-adds at the int32 instruction rate, whichever is larger."""
     nbytes = _tensor_bytes(args, out)
-    mads = _kernel_products(kname, args, out) * MADS_PER_PRODUCT
+    squarings, products = _kernel_products(kname, args, out)
+    mads = squarings * MADS_PER_SQUARING + products * MADS_PER_PRODUCT
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = mads / (SMS * INT32_LANES * clock_hz) * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
@@ -251,7 +270,8 @@ def _require_equal(kname: str, field_name: str, got, want, err: dict) -> None:
                          f"with its plain version (max |limb diff| {e})")
 
 
-def phase_kernels(device, lanes: int, t: int, timing_lanes: int, clock_hz: float) -> dict:
+def phase_kernels(device, lanes: int, t: int, timing_lanes: int, main_t: int,
+                  clock_hz: float) -> dict:
     """K1/K2 vs plain, bit for bit; returns per-kernel error and times."""
     import torch
 
@@ -268,17 +288,18 @@ def phase_kernels(device, lanes: int, t: int, timing_lanes: int, clock_hz: float
     err = {"minroot_eval": 0, "minroot_inverse": 0}
     for name in ("Fp", "Fq"):
         f, p = get_field(name), FIELDS[name].modulus
-        s = [f.encode(_xorshift_ints(lanes, p, rng), device) for _ in range(3)]
-        fwd = minroot_eval(name, *s, t)
-        fwd_plain = minroot_eval_plain(name, *s, t)
-        back = minroot_inverse(name, *fwd, t)
-        back_plain = minroot_inverse_plain(name, *fwd, t)
-        torch.cuda.synchronize()
-        _require_equal("minroot_eval", name, fwd, fwd_plain, err)
-        _require_equal("minroot_inverse", name, back, back_plain, err)
-        if not all(torch.equal(a, b) for a, b in zip(back, s)):
-            raise SystemExit(f"inverse(eval(s)) != s on {name}")
-        _log(f"kernels: {name} K1/K2 == plain on {lanes} lanes at t={t}, round trip ok")
+        for n, rounds in ((lanes, t), *((n, RAGGED_T) for n in RAGGED_LANES)):
+            s = [f.encode(_xorshift_ints(n, p, rng), device) for _ in range(3)]
+            fwd = minroot_eval(name, *s, rounds)
+            fwd_plain = minroot_eval_plain(name, *s, rounds)
+            back = minroot_inverse(name, *fwd, rounds)
+            back_plain = minroot_inverse_plain(name, *fwd, rounds)
+            torch.cuda.synchronize()
+            _require_equal("minroot_eval", name, fwd, fwd_plain, err)
+            _require_equal("minroot_inverse", name, back, back_plain, err)
+            if not all(torch.equal(a, b) for a, b in zip(back, s)):
+                raise SystemExit(f"inverse(eval(s)) != s on {name} at {n} lanes")
+            _log(f"kernels: {name} K1/K2 == plain on {n} lanes at t={rounds}, round trip ok")
 
     # At the main path's lane count (Fq): times, and kernel == plain bit for
     # bit on every lane.  Kernel and plain see the same tensors; K2 runs on
@@ -299,6 +320,30 @@ def phase_kernels(device, lanes: int, t: int, timing_lanes: int, clock_hz: float
              f"plain {plain_ms:.4f} ms, bound {times[kname]['bound_ms']:.6f} ms "
              f"({times[kname]['bound_by']}); == plain on all {timing_lanes} lanes")
         state = got
+
+    # The main shape: each kernel's bound there, and one launch of K2 (warm)
+    # between two events.  K1's one launch at this shape is phase 3's eval,
+    # timed there between two events: main() copies that time in.  No plain
+    # version runs this many rounds.
+    for kname in ("minroot_eval", "minroot_inverse"):
+        ms = None
+        if kname == "minroot_inverse":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            minroot_inverse("Fq", *state, main_t)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+        bound = _bound(kname, ("Fq", *state, main_t), state, clock_hz)
+        squarings, products = _minroot_products("Fq", kname == "minroot_eval")
+        times[kname]["main_shape"] = {
+            "lanes": timing_lanes, "t": main_t, "ms": ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "squarings_per_round": squarings, "products_per_round": products,
+            "multiply_adds_per_round": squarings * MADS_PER_SQUARING
+            + products * MADS_PER_PRODUCT,
+        }
+        _log(f"timing: {kname} Fq at the main shape: " + json.dumps(times[kname]["main_shape"]))
     return {k: {"max_abs_err": err[k], **times[k]} for k in err}
 
 
@@ -1020,8 +1065,14 @@ def main() -> None:
     _log(f"bounds: {SMS} SMs x {INT32_LANES} int32 lanes x {clock_hz / 1e6:.0f} MHz "
          f"(nvidia-smi clocks.max.sm), {HBM_BYTES_PER_S / 1e12} TB/s")
     phase_build()
-    kernel_stats = phase_kernels(device, CHECK_LANES, CHECK_T, LANES, clock_hz)
+    kernel_stats = phase_kernels(device, CHECK_LANES, CHECK_T, LANES, T, clock_hz)
     main_stats = phase_main(device, LANES, T, T_APPEND)
+    # K1's launch at the main shape was phase 3's eval.
+    k1_main = kernel_stats["minroot_eval"]["main_shape"]
+    k1_main["ms"] = main_stats["eval_event_s"] * 1e3
+    _log("timing: minroot_eval Fq at the main shape: " + json.dumps(k1_main))
+    if min(k1_main["ms"], kernel_stats["minroot_inverse"]["main_shape"]["ms"]) <= 0:
+        raise SystemExit("timing: a main-shape launch took no time")
     commit_kernel_stats = phase_commit_kernels(device, COMMIT_CHECK_N, COMMIT_N, clock_hz)
     _, commit_launches = phase_commit(device, COMMIT_N)
     msm_kernel_stats = phase_msm_kernels(device, MSM_CHECK_N, MSM_N, clock_hz)
@@ -1049,7 +1100,8 @@ def main() -> None:
                 st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
                 "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
                 "library_ms": st["library_ms"], "launches_by_path": launches,
-                "timed_at": timed_at}
+                "timed_at": timed_at, **({"main_shape": st["main_shape"]}
+                                         if "main_shape" in st else {})}
 
     msm_src = "vdf_tpu_torch/csrc/msm_kernels.cuh"
     kernels = [

@@ -69,27 +69,44 @@ def test_constants_header_matches_params():
     rows = re.findall(r"\{([^{}]*)\}", digits)
     for name, row in zip(("Fp", "Fq"), rows):
         assert [int(d) for d in row.split(",")] == FIELDS[name].inv_alpha_digits
-    consts = re.search(r"VDF_FIELD_CONSTS_INIT (.*)", text).group(1)
-    words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]+)u", consts)]
-    assert len(words) == 2 * (3 * 8 + 1)
+    def table(macro):
+        words = [int(w, 16) for w in re.findall(
+            r"0x([0-9a-f]+)u", re.search(rf"{macro} (.*)", text).group(1))]
+        assert len(words) == 2 * 8
+        return words[:8], words[8:]
+
     for k, name in enumerate(("Fp", "Fq")):
         P = FIELDS[name]
-        w = words[k * 25 : (k + 1) * 25]
-        assert w[0:8] == int_to_limbs(P.modulus).tolist()
-        assert w[8:16] == int_to_limbs(2 * P.modulus).tolist()
-        assert w[16:24] == int_to_limbs(P.mont_one).tolist()
-        assert (w[24] * P.modulus) % (1 << 32) == (1 << 32) - 1  # -1/p mod 2^32
-    curve = re.search(r"VDF_CURVE_CONSTS_INIT (.*)", text).group(1)
-    words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]+)u", curve)]
-    assert len(words) == 2 * 16
-    for k, name in enumerate(("Fp", "Fq")):
-        P = FIELDS[name]
-        w = words[k * 16 : (k + 1) * 16]
-        assert w[0:8] == int_to_limbs(15 * P.r % P.modulus).tolist()  # 3b, Montgomery
-        assert w[8:16] == int_to_limbs(P.r * P.r % P.modulus).tolist()  # R^2 mod p
+        assert table("VDF_P_INIT")[k] == int_to_limbs(P.modulus).tolist()
+        assert table("VDF_TWO_P_INIT")[k] == int_to_limbs(2 * P.modulus).tolist()
+        assert table("VDF_ONE_INIT")[k] == int_to_limbs(P.mont_one).tolist()
+        assert table("VDF_B3_INIT")[k] == int_to_limbs(15 * P.r % P.modulus).tolist()  # 3b
+        assert table("VDF_R2_INIT")[k] == int_to_limbs(P.r * P.r % P.modulus).tolist()
+        # the shape csrc/field.cuh's reduction is written for
+        limbs = table("VDF_P_INIT")[k]
+        assert limbs[0] == 1 and limbs[4:7] == [0, 0, 0] and limbs[7] == 1 << 30
+        assert (-pow(P.modulus, -1, 1 << 32)) % (1 << 32) == (1 << 32) - 1
     assert _build.build_key() == _build.build_key()
     assert set(_build.LAUNCHERS) >= {"vdf_minroot_eval", "vdf_scan", "vdf_bucket", "vdf_horner"}
     assert len(_build.LAUNCHERS["vdf_canon_digits"]) == 8  # the layout flag before the stream
+
+
+@pytest.mark.parametrize("modulus", [
+    (1 << 254) + (0x224698FC094CF91B992D30ED << 32) + 3,  # p[0] = 3
+    (1 << 254) + (1 << 128) + 1,  # p[4] = 1
+    (1 << 254) + (1 << 224) + 1,  # p[7] = 2^30 + 1
+], ids=["low_limb", "middle_limb", "top_limb"])
+def test_constants_header_refuses_a_modulus_of_another_shape(monkeypatch, modulus):
+    """csrc/field.cuh's reduction is written for p = 1 + c 2^32 + 2^254; the
+    build must refuse any other modulus, not miscompute with it."""
+    from vdf_tpu_torch.fields.params import FieldParams
+
+    other = FieldParams("Fp", modulus, FIELDS["Fp"].inv_alpha)
+    monkeypatch.setitem(_build.FIELDS, "Fp", other)
+    with pytest.raises(KernelError, match="needs a modulus"):
+        _build.constants_header()
+    monkeypatch.undo()
+    assert "VDF_P_INIT" in _build.constants_header()
 
 
 @pytest.mark.parametrize("name", ["Fp", "Fq"])

@@ -10,8 +10,10 @@ the input back on every lane.  Each kernel is then timed RUNS times,
 each time as the mean of REPS back-to-back launches between two CUDA
 events, so the host's launch overhead hides behind the previous launch.
 Prints the card's name and power limit, then one JSON line per lane
-count: microseconds a round of each run, and K1's aggregate
-iterations/s.  Exits non-zero without a CUDA device.
+count: microseconds a round of each run, K1's iterations/s a lane (the
+sequential rate, which the smallest lane counts show without any other
+lane in the way) and its aggregate iterations/s.  Exits non-zero without
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import os
 import subprocess
 import sys
 
-SWEEP_LANES = (1024, 8192, 32768, 57344, 131072)
+SWEEP_LANES = (1, 64, 1024, 8192, 32768, 57344, 131072)
 T = 64
 RUNS = 3
 REPS = 5
@@ -75,6 +77,7 @@ def main() -> None:
             "t": T,
             "k1_us_per_round": k1_us,
             "k2_us_per_round": k2_us,
+            "k1_iters_per_s_per_lane": [1e6 / us for us in k1_us],
             "k1_iters_per_s": [lanes * 1e6 / us for us in k1_us],
         }), flush=True)
 

@@ -65,27 +65,36 @@ def _c_array(v: int) -> str:
 
 
 def constants_header() -> str:
-    """vdf_consts.h: per-field constants (modulus, 2p, Montgomery one,
-    -1/p mod 2^32), inv_alpha window digits, and per-field curve constants
-    (3b = 15 in Montgomery form, R^2 mod p), in FIELD_INDEX order."""
-    consts, digits, curve = [], [], []
-    for name in sorted(FIELD_INDEX, key=FIELD_INDEX.get):
-        P = FIELDS[name]
-        consts.append(
-            f"{{{_c_array(P.modulus)}, {_c_array(2 * P.modulus)}, "
-            f"{_c_array(P.mont_one)}, 0x{P.pinv32:08x}u}}"
-        )
-        digits.append("{" + ", ".join(map(str, P.inv_alpha_digits)) + "}")
-        curve.append(f"{{{_c_array(P.to_mont(B3))}, {_c_array(P.r * P.r % P.modulus)}}}")
-    n_digits = {len(FIELDS[n].inv_alpha_digits) for n in FIELD_INDEX}
+    """vdf_consts.h: per-field limb tables (modulus, 2p, Montgomery one,
+    3b = 15 in Montgomery form, R^2 mod p) and inv_alpha window digits, in
+    FIELD_INDEX order.  The kernels read them as compile-time constants."""
+    names = sorted(FIELD_INDEX, key=FIELD_INDEX.get)
+    params = [FIELDS[name] for name in names]
+    # csrc/field.cuh's reduction is written for moduli of the shape
+    # 1 + c1 2^32 + c2 2^64 + c3 2^96 + 2^254, for which -1/p mod 2^32 = 2^32 - 1.
+    for name, P in zip(names, params):
+        limbs = [int(w) for w in int_to_limbs(P.modulus)]
+        if not (limbs[0] == 1 and limbs[4:7] == [0, 0, 0] and limbs[7] == 1 << 30
+                and P.pinv32 == 0xFFFFFFFF):
+            raise KernelError(f"field {name}: csrc/field.cuh needs a modulus with limbs "
+                              f"[1, c1, c2, c3, 0, 0, 0, 2^30]; got {[hex(w) for w in limbs]}")
+    tables = {
+        "VDF_P_INIT": [P.modulus for P in params],
+        "VDF_TWO_P_INIT": [2 * P.modulus for P in params],
+        "VDF_ONE_INIT": [P.mont_one for P in params],
+        "VDF_B3_INIT": [P.to_mont(B3) for P in params],
+        "VDF_R2_INIT": [P.r * P.r % P.modulus for P in params],
+    }
+    digits = ["{" + ", ".join(map(str, P.inv_alpha_digits)) + "}" for P in params]
+    n_digits = {len(P.inv_alpha_digits) for P in params}
     assert len(n_digits) == 1 and NLIMBS == 8
     return "\n".join([
         "// Generated by vdf_tpu_torch/_build.py from fields/params.py.",
         "#pragma once",
         f"#define VDF_N_DIGITS {n_digits.pop()}",
-        "#define VDF_FIELD_CONSTS_INIT {" + ", ".join(consts) + "}",
+        *(f"#define {macro} {{" + ", ".join(map(_c_array, vals)) + "}"
+          for macro, vals in tables.items()),
         "#define VDF_DIGITS_INIT {" + ", ".join(digits) + "}",
-        "#define VDF_CURVE_CONSTS_INIT {" + ", ".join(curve) + "}",
         "",
     ])
 

@@ -77,7 +77,6 @@
 
 #include <cstdint>
 
-#include "consts.cuh"
 #include "curve.cuh"
 #include "field.cuh"
 
@@ -124,12 +123,12 @@ __device__ __forceinline__ void copy_pt(Pt& r, const Pt& p) {
 // local memory) is small beside the products.
 template <int K>
 __device__ __noinline__ void add_pt(Pt& r, const Pt& p, const Pt& q) {
-  point_add(r, p, q, FIELD_CONSTS[K], CURVE_CONSTS[K]);
+  point_add<K>(r, p, q);
 }
 
 template <int K>
 __device__ __noinline__ void dbl_pt(Pt& r, const Pt& p) {
-  point_double(r, p, FIELD_CONSTS[K], CURVE_CONSTS[K]);
+  point_double<K>(r, p);
 }
 
 // ---------------------------------------------------------------------
@@ -146,15 +145,14 @@ template <int K>
 __global__ void __launch_bounds__(CBLOCK)
     canon_digits_kernel(const uint32_t* __restrict__ scalars, int64_t* __restrict__ keys,
                         int64_t n, int64_t count, int64_t m_pad, int window_rows) {
-  const FieldConsts& F = FIELD_CONSTS[K];
   const int64_t g = (int64_t)blockIdx.x * CBLOCK + threadIdx.x;
   if (g >= count) return;
   const int64_t k = g / n, i = g % n;
   uint32_t v[NL], int_one[NL] = {1, 0, 0, 0, 0, 0, 0, 0};
 #pragma unroll
   for (int j = 0; j < NL; ++j) v[j] = scalars[g * NL + j];
-  canon(v, F);               // any 256-bit pattern -> < p
-  mont_mul(v, v, int_one, F);  // v / R: the canonical integer
+  canon<K>(v);               // any 256-bit pattern -> < p
+  mont_mul<K>(v, v, int_one);  // v / R: the canonical integer
   int64_t* row = keys + k * m_pad * (window_rows ? WINDOWS : 1);
 #pragma unroll
   for (int w = 0; w < WINDOWS; ++w) {
@@ -176,14 +174,16 @@ template <int K>
 __global__ void __launch_bounds__(CBLOCK)
     canon_mont_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                       int64_t count) {
-  const FieldConsts& F = FIELD_CONSTS[K];
   const int64_t g = (int64_t)blockIdx.x * CBLOCK + threadIdx.x;
   if (g >= count) return;
   uint32_t v[NL];
 #pragma unroll
   for (int j = 0; j < NL; ++j) v[j] = in[g * NL + j];
-  canon(v, F);
-  mont_mul(v, v, CURVE_CONSTS[K].r2, F);
+  canon<K>(v);
+  uint32_t r2[NL];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) r2[j] = mont_r2<K>(j);
+  mont_mul<K>(v, v, r2);
 #pragma unroll
   for (int j = 0; j < NL; ++j) out[g * NL + j] = v[j];
 }
@@ -196,14 +196,13 @@ template <int K>
 __global__ void __launch_bounds__(PBLOCK)
     shift_gens_kernel(const uint32_t* __restrict__ gens, uint32_t* __restrict__ table,
                       int64_t n) {
-  const FieldConsts& F = FIELD_CONSTS[K];
   const int64_t i = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
   if (i >= n) return;
   Pt p;
   load_pt(p, gens, i);
-  canon(p.x, F);
-  canon(p.y, F);
-  canon(p.z, F);
+  canon<K>(p.x);
+  canon<K>(p.y);
+  canon<K>(p.z);
   for (int w = 0; w < WINDOWS; ++w) {
     store_pt(table, w * n + i, p);
     if (w + 1 == WINDOWS) break;
@@ -302,7 +301,7 @@ __global__ void __launch_bounds__(PBLOCK)
   if (g >= total) return;
   Pt v;
   if (g % cols == 0) {
-    set_identity(v, FIELD_CONSTS[K]);
+    set_identity<K>(v);
   } else {
     load_pt(v, incl, g - 1);
   }
@@ -321,7 +320,7 @@ __device__ __forceinline__ void load_bucket(Pt& B, const uint32_t* tails,
                                             const uint32_t* carries, int64_t k, int64_t b,
                                             int64_t cols) {
   if (b == 0) {
-    set_identity(B, FIELD_CONSTS[K]);
+    set_identity<K>(B);
     return;
   }
   load_pt(B, tails, k * NB + b);
@@ -444,19 +443,18 @@ template <int K>
 __global__ void __launch_bounds__(PBLOCK)
     horner_kernel(const uint32_t* __restrict__ sums, uint32_t* __restrict__ out,
                   int64_t batch) {
-  const FieldConsts& F = FIELD_CONSTS[K];
   const int64_t g = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
   if (g >= batch) return;
   Pt acc, s;
-  set_identity(acc, F);
+  set_identity<K>(acc);
 #pragma unroll 1
   for (int w = WINDOWS - 1; w >= 0; --w) {
 #pragma unroll 1
     for (int b = 0; b < WINDOW_BITS; ++b) dbl_pt<K>(acc, acc);
     load_pt(s, sums, g * WINDOWS + w);
-    canon(s.x, F);
-    canon(s.y, F);
-    canon(s.z, F);
+    canon<K>(s.x);
+    canon<K>(s.y);
+    canon<K>(s.z);
     add_pt<K>(acc, acc, s);
   }
   store_pt(out, g, acc);
