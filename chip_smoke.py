@@ -29,9 +29,14 @@ Phases (any failure exits non-zero; nothing is caught):
   5. commit kernels  K3 (canon_digits, canon_mont), K7 (shift_gens), K4
              (scan), K5 (colscan) and K6 (bucket) against their plain
              versions on the card, on Pallas and Vesta at n = 256 (K = 2
-             rows): every output element bit-for-bit equal; then at the
-             commit's main shape, n = 2^14, each kernel's time beside its
-             plain version's, outputs again bit-for-bit equal;
+             rows): every output element bit-for-bit equal; K5 and K6 again
+             at the shapes that stress their structure (rows of one column,
+             of a tile and one more, of a ragged last tile, of more tiles
+             than one block scans at once, a head in every column and in
+             none; a carry into no bucket and into every bucket, identity
+             tails); then at the commit's main shape, n = 2^14, each
+             kernel's time beside its plain version's, outputs again
+             bit-for-bit equal;
   6. commit  for Pallas and Vesta: commitment_key(curve, 2^14) (host
              derivation and K7 table timed apart), commit of xorshift
              scalars == the native C++ Pippenger in affine (Pallas; on Vesta
@@ -39,13 +44,15 @@ Phases (any failure exits non-zero; nothing is caught):
              batch == two single commits, zero -> identity, e_0 -> G_0,
              (q - 1) e_{n-1} -> -G_{n-1}, one changed scalar changes the
              commitment; commit_fixed's canonical output agrees; wall and
-             CUDA-event ms of a commit at K = 1 and K = 2;
+             CUDA-event ms of a commit at K = 1 and K = 2, and the stages of
+             one commit from events recorded between them;
   7. evidence the launch counters of K3-K7 moved during phase 6's key ->
              table -> first commit on each curve (read before the checks);
   8. MSM kernels  K9 (horner) against its plain version on Pallas and Vesta
              at B = 1 and B = 5, and K3's window-row layout, K4, K5, K6 in
              the variable-base shape (22 batch rows, one a window) against
-             theirs at n = 2^12: bit for bit; then on Pallas at n = 2^20
+             theirs at n = 2^12: bit for bit, K5 and K6 the same bits 20
+             launches over; then on Pallas at n = 2^20
              each stage's time beside its plain version's on the same
              tensors (K4's and K5's one window row at a time, to bound
              their temporaries), outputs bit for bit equal, and the 22 window
@@ -56,7 +63,8 @@ Phases (any failure exits non-zero; nothing is caught):
              default_rng(7)) == the native Pippenger on the 1,024 base points
              with the scalars summed by residue; at n = 2^12 on both curves
              == the native Pippenger; n = 1, n = 23 and a vector with P, -P,
-             the identity, a repeat and zero scalars; wall and CUDA-event ms;
+             the identity, a repeat and zero scalars; wall and CUDA-event ms,
+             and the stages of one msm from events recorded between them;
  10. engine  public_params(1000) -> eval_and_make_circuits(vdf, 1000, 2, s0)
              -> NovaVDFProof.prove_recursively -> proof.verify, all on the
              card with no device argument: verify is True; wrong num_steps,
@@ -99,6 +107,7 @@ COMMIT_NATIVE_CURVE = "pallas"  # the curve whose 2^14 commit the native Pippeng
 MSM_N = 1 << 20  # variable-base MSM length (BASELINE config 5)
 MSM_CHECK_N = 1 << 12  # kernel-vs-plain and native-check MSM length
 MSM_BASE = 1024  # distinct base points of the MSM inputs, repeated to n
+REPEATS = 20  # launches of K5 and K6 on the same 22-row inputs that must agree bit for bit
 ENGINE_T = 1000  # MinRoot iterations a Nova step (the reference sweep point)
 ENGINE_STEPS = 2  # Nova steps
 
@@ -212,10 +221,10 @@ def _kernel_products(kname: str, args, out) -> tuple[int, int]:
         return _point_ops(int((d[:, :, 1:] == d[:, :, :-1]).sum().item()), 0)
     if kname == "colscan":  # one add a column after the first that holds no run's head
         return _point_ops(int((args[2][:, 1:] == 0).sum().item()), 0)
-    if kname == "bucket":  # carries, then the three radix-16 levels
+    if kname == "bucket":  # carries; 4,094 pair sums, 4,083 adds in the O_j trees; the Horner
         k = args[1].shape[0]
-        adds = int((args[2] >= 0).sum().item()) + k * (256 * 29 + 16 * 44 + 60)
-        return _point_ops(adds, k * 8)
+        adds = int((args[2] >= 0).sum().item()) + k * (4094 + 4083 + 11)
+        return _point_ops(adds, k * 11)
     if kname == "horner":
         b = args[1].shape[0]
         return _point_ops(b * CK.WINDOWS, b * CK.WINDOWS * CK.WINDOW_BITS)
@@ -488,10 +497,65 @@ def _require_same(kname: str, where: str, got, want, err: dict) -> None:
         raise SystemExit(f"{kname} {where} disagrees with its plain version (max |diff| {e})")
 
 
+# K5 at the shapes that stress its tiles: (batch rows, columns, share of columns
+# that hold a run's head; column 0 always does unless the share is 0).  A tile
+# is 128 columns up to 16,384 columns a row and 512 beyond.
+CARRY_EDGE_SHAPES = (
+    (2, 1, 0.3), (2, 129, 0.3), (2, 300, 0.3), (2, 300, 1.0), (2, 300, 0.0),  # tiles of 128
+    (2, 16385, 0.05), (1, 34 * 512 + 1, 1.0), (1, 20000, 0.0),  # tiles of 512
+    (1, 130 * 512 + 3, 0.0005),  # more tiles a row than one block scans at once
+)
+
+
+def _edge_checks(curve_name: str, table, device, err: dict) -> None:
+    """K5 and K6 against their plain versions, bit for bit, on inputs made
+    for the edges of their structure: rows of one column, of a tile and one
+    more, of a ragged last tile, with a head in every column or in none; K6
+    with a carry into no bucket, into every bucket, and with identity tails."""
+    import numpy as np
+    import torch
+
+    from vdf_tpu_torch.curves import CURVES
+    from vdf_tpu_torch.curves import kernels as CK
+
+    bf = CURVES[curve_name].base_field
+    rng = np.random.default_rng(5)
+
+    def points(*shape):
+        idx = torch.from_numpy(rng.integers(0, table.shape[0], size=shape)).to(device)
+        return table[idx].contiguous()
+
+    for k, cols, share in CARRY_EDGE_SHAPES:
+        flags = torch.from_numpy((rng.random((k, cols)) < share).astype(np.int32)).to(device)
+        if share:
+            flags[:, 0] = 1
+        sums = points(k, cols)
+        got, want = CK.column_carries(bf, sums, flags), CK.column_carries_plain(bf, sums, flags)
+        torch.cuda.synchronize()
+        _require_same("colscan", f"on {curve_name} at {k} x {cols} columns, heads in "
+                      f"{share:.2%}", got, want, err)
+    cols = 7
+    for carried, identity_tails in (("none", False), ("all", False), ("some", True)):
+        tails = CK._identity_rows(bf, (2, CK.NB), device) if identity_tails else points(2, CK.NB)
+        tail_col = torch.from_numpy(rng.integers(0, cols, size=(2, CK.NB)).astype(np.int32))
+        if carried == "none":
+            tail_col[:] = -1
+        elif carried == "some":
+            tail_col[torch.from_numpy(rng.random((2, CK.NB)) < 0.5)] = -1
+        a = (bf, tails, tail_col.to(device), points(2, cols))
+        got, want = CK.bucket_sums(*a), CK.bucket_sums_plain(*a)
+        torch.cuda.synchronize()
+        _require_same("bucket", f"on {curve_name} with a carry into {carried} buckets"
+                      f"{', identity tails' if identity_tails else ''}", got, want, err)
+    _log(f"commit kernels: {curve_name} K5 == plain at {len(CARRY_EDGE_SHAPES)} edge shapes "
+         f"(1 to {max(c for _, c, _ in CARRY_EDGE_SHAPES)} columns), K6 == plain with a carry "
+         f"into no bucket, into every bucket, and with identity tails, bit for bit")
+
+
 def phase_commit_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
     """K3-K7 vs plain, bit for bit, on both curves at check_n (K = 2
-    rows), then at n (K = 1) with times; returns per-kernel error and the
-    Pallas times at n."""
+    rows), K5 and K6 at their edge shapes, then K3-K7 at n (K = 1) with
+    times; returns per-kernel error and the Pallas times at n."""
     import torch
 
     from vdf_tpu_torch.curves import kernels as CK
@@ -506,6 +570,7 @@ def phase_commit_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
             torch.cuda.synchronize()
             _require_same(kname, f"on {curve_name} at n={check_n}", got, want, err)
         _log(f"commit kernels: {curve_name} K3-K7 == plain at n={check_n}, K=2, bit for bit")
+        _edge_checks(curve_name, CK.shift_gens(*args["shift_gens"]), device, err)
 
     for curve_name in COMMIT_CURVES:
         gens, ints, s, keys, sorted_keys = _commit_inputs(curve_name, n, 1, device)
@@ -546,6 +611,62 @@ def _commit_ms(fn, arg, reps: int = 5) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps, start.elapsed_time(end) / reps
+
+
+def _stage_split(stages, reps: int = 5):
+    """Mean device milliseconds of each stage of a pipeline, from CUDA events
+    recorded between the stages of reps back-to-back passes (after one
+    warm-up pass), and the last pass's result.  ``stages`` are (name, fn)
+    pairs, each fn taking the result of the stage before it.  A stage's time
+    runs from the end of the stage before it, so the stages add up to the
+    passes' whole time, waits for the host included."""
+    import torch
+
+    def one_pass(events):
+        out = None
+        for (_, fn), event in zip(stages, events[1:]):
+            out = fn(out)
+            event.record()
+        return out
+
+    def new_events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+
+    one_pass(new_events())
+    torch.cuda.synchronize()
+    passes = [new_events() for _ in range(reps)]
+    for events in passes:
+        events[0].record()
+        out = one_pass(events)
+    torch.cuda.synchronize()
+    split = {name: sum(ev[j].elapsed_time(ev[j + 1]) for ev in passes) / reps
+             for j, (name, _) in enumerate(stages)}
+    return split, out
+
+
+def _accumulation_stages(curve_name: str, table, scalars, items: int, window_rows: bool):
+    """The stages of one bucket accumulation as curves/bucket_msm.py and
+    curves/msm.py run them: K3 keys, the sort, K4, K5, K6."""
+    import torch
+
+    from vdf_tpu_torch.curves import CURVES
+    from vdf_tpu_torch.curves import kernels as CK
+    from vdf_tpu_torch.curves.bucket_msm import ROWS
+
+    bf, sf = CURVES[curve_name].base_field, CURVES[curve_name].scalar_field
+    m_pad = -(-items // ROWS) * ROWS
+
+    def keys(_):
+        out = CK.canon_digits(sf, scalars, m_pad, window_rows)
+        return out[0] if window_rows else out
+
+    return [
+        ("canon_digits", keys),
+        ("sort", lambda k: torch.sort(k, dim=-1).values),
+        ("scan", lambda k: CK.bucket_scan(bf, table, k, ROWS)),
+        ("colscan", lambda r: (r[0], r[1], CK.column_carries(bf, r[2], r[3]))),
+        ("bucket", lambda r: CK.bucket_sums(bf, *r)),
+    ]
 
 
 def phase_commit(device, n: int) -> tuple[dict, dict]:
@@ -627,6 +748,12 @@ def phase_commit(device, n: int) -> tuple[dict, dict]:
 
         k1_wall, k1_event = _commit_ms(ck.commit, s)
         k2_wall, k2_event = _commit_ms(ck.commit_batch, torch.stack([s, s2]))
+        split, staged = _stage_split(
+            _accumulation_stages(name, table, s[None].contiguous(), CK.WINDOWS * n, False))
+        if not torch.equal(staged[0], stack_point(pt)):
+            raise SystemExit(f"commit: {name} the staged pass gave another commitment")
+        _log(f"commit: {name} n={n} stages of one commit (events between the stages, mean of "
+             f"5 passes), ms: " + json.dumps(split) + f"; sum {sum(split.values()):.4f}")
         stats[name] = {
             "n": n, "derive_s": derive_s, "key_to_card_s": key_s, "table_s": table_s,
             "commit_ms": k1_wall, "commit_event_ms": k1_event,
@@ -755,8 +882,18 @@ def phase_msm_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
             got, want = getattr(CK, fn)(*a), getattr(CK, fn + "_plain")(*a)
             torch.cuda.synchronize()
             _require_same(kname, f"on {curve_name} at n={check_n}, variable base", got, want, err)
+        # Blocks race only on the card: K5's and K6's many blocks a row must
+        # give the same bits however they interleave.
+        for kname in ("colscan", "bucket"):
+            fn = getattr(CK, COMMIT_KERNELS[kname][0])
+            first = fn(*args[kname])
+            for _ in range(REPEATS):
+                if not torch.equal(fn(*args[kname]), first):
+                    raise SystemExit(f"{kname} on {curve_name} at n={check_n}, 22 rows: two "
+                                     f"launches on the same inputs gave different outputs")
         _log(f"msm kernels: {curve_name} K9 == plain at B=1 and 5; K3 (window rows), K4, K5, "
-             f"K6, K9 == plain at n={check_n} (22 rows), bit for bit")
+             f"K6, K9 == plain at n={check_n} (22 rows), bit for bit; K5 and K6 the same bits "
+             f"{REPEATS} launches over")
 
     base_aff, pts, scalars, _ = _msm_inputs("pallas", n, device)
     args, keys = _msm_stage_args("pallas", pts, scalars)
@@ -812,7 +949,7 @@ def phase_msm(device, n: int, check_n: int) -> tuple[dict, dict]:
     import torch
 
     from vdf_tpu_torch import msm
-    from vdf_tpu_torch.curves import Point, get_curve, get_int_curve, unstack_point
+    from vdf_tpu_torch.curves import Point, get_curve, get_int_curve, stack_point, unstack_point
     from vdf_tpu_torch.curves import kernels as CK
     from vdf_tpu_torch.native import msm_native_affine
 
@@ -859,6 +996,14 @@ def phase_msm(device, n: int, check_n: int) -> tuple[dict, dict]:
         raise SystemExit(f"msm: n={n} != the native Pippenger on the {len(base_aff)} base "
                          f"points with the summed scalars")
     wall_ms, event_ms = _commit_ms(lambda s: msm(c, points, s), scalars, reps=3)
+    bf = c.params.base_field
+    split, staged = _stage_split(
+        _accumulation_stages("pallas", pts, scalars[None], n, True)
+        + [("horner", lambda sums: CK.horner(bf, sums[None]))], reps=3)
+    if not torch.equal(staged[0], stack_point(total)):
+        raise SystemExit("msm: the staged pass gave another sum")
+    _log(f"msm: pallas n={n} stages of one msm (events between the stages, mean of 3 passes), "
+         f"ms: " + json.dumps(split) + f"; sum {sum(split.values()):.4f}")
     stats = {"n": n, "msm_ms": wall_ms, "msm_event_ms": event_ms,
              "points_per_s": n / (wall_ms / 1e3), "inputs_s": inputs_s,
              "collapsed_native_s": native_s, "peak_bytes": peak}

@@ -89,6 +89,9 @@ def test_constants_header_matches_params():
     assert _build.build_key() == _build.build_key()
     assert set(_build.LAUNCHERS) >= {"vdf_minroot_eval", "vdf_scan", "vdf_bucket", "vdf_horner"}
     assert len(_build.LAUNCHERS["vdf_canon_digits"]) == 8  # the layout flag before the stream
+    # K5: sums, flags, three scratch buffers, carries, cols, batch, columns a thread;
+    # K6: tails, tail_col, carries, scratch, out, cols, batch, chunk bits, threads.
+    assert len(_build.LAUNCHERS["vdf_colscan"]) == 11 and len(_build.LAUNCHERS["vdf_bucket"]) == 11
 
 
 @pytest.mark.parametrize("modulus", [

@@ -123,8 +123,8 @@ LAUNCHERS = {
     "vdf_canon_mont": [_I, _P, _P, _L, _P],
     "vdf_shift_gens": [_I, _P, _P, _L, _P],
     "vdf_scan": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P],
-    "vdf_colscan": [_I, _P, _P, _P, _P, _P, _L, _L, _P],
-    "vdf_bucket": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P],
+    "vdf_colscan": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P],
+    "vdf_bucket": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P],
     "vdf_horner": [_I, _P, _P, _L, _P],
 }
 

@@ -70,58 +70,66 @@ extern "C" int vdf_scan(int field, const void* table, const void* keys, void* ta
   return (int)cudaGetLastError();
 }
 
-// K5: ceil(log2 cols) Hillis-Steele levels ping-ponging between the two
-// halves of the scratch buffers (the inputs are only read), then the shift
-// into `carries`.  scratch_v holds 2 * batch * cols points, scratch_f
-// 2 * batch * cols int32.
-extern "C" int vdf_colscan(int field, const void* sums, const void* flags, void* scratch_v,
-                           void* scratch_f, void* carries, int64_t cols, int64_t batch,
-                           void* stream) {
-  if (bad_field(field) || cols <= 0) return (int)cudaErrorInvalidValue;
+// K5: the three passes of the blocked scan.  per_thread is L, the columns a
+// thread owns: the caller derives it from cols and sizes the scratch by it
+// (tiles = ceil(cols / (PBLOCK L)) a batch row): thread_v batch * tiles *
+// PBLOCK points, thread_f as many int32, tile_incl batch * tiles points.
+extern "C" int vdf_colscan(int field, const void* sums, const void* flags, void* thread_v,
+                           void* thread_f, void* tile_incl, void* carries, int64_t cols,
+                           int64_t batch, int per_thread, void* stream) {
+  if (bad_field(field) || cols <= 0 || per_thread <= 0) return (int)cudaErrorInvalidValue;
   if (batch <= 0) return (int)cudaSuccess;
-  const int64_t total = batch * cols;
-  const dim3 grid = grid_of(total, vdf::PBLOCK);
+  const int64_t span = (int64_t)vdf::PBLOCK * per_thread;
+  const int64_t tiles = (cols + span - 1) / span;
+  const int64_t staged = vdf::stage_pieces(per_thread) * (int64_t)sizeof(vdf::U4);
+  const int shared =
+      (int)(staged > vdf::COLSCAN_SCAN_BYTES ? staged : vdf::COLSCAN_SCAN_BYTES);
   cudaStream_t s = (cudaStream_t)stream;
-  auto step = field == 0 ? vdf::colscan_step_kernel<0> : vdf::colscan_step_kernel<1>;
-  auto shift = field == 0 ? vdf::carry_shift_kernel<0> : vdf::carry_shift_kernel<1>;
-  const uint32_t* v_in = (const uint32_t*)sums;
-  const int32_t* f_in = (const int32_t*)flags;
-  int half = 0;
-  for (int64_t d = 1; d < cols; d *= 2, half ^= 1) {
-    uint32_t* v_out = (uint32_t*)scratch_v + half * total * vdf::PT;
-    int32_t* f_out = (int32_t*)scratch_f + half * total;
-    step<<<grid, vdf::PBLOCK, 0, s>>>(v_in, f_in, v_out, f_out, cols, total, d);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    v_in = v_out;
-    f_in = f_out;
-  }
-  shift<<<grid, vdf::PBLOCK, 0, s>>>(v_in, (uint32_t*)carries, cols, total);
+  auto tile = field == 0 ? vdf::colscan_tile_kernel<0> : vdf::colscan_tile_kernel<1>;
+  auto rows = field == 0 ? vdf::colscan_rows_kernel<0> : vdf::colscan_rows_kernel<1>;
+  auto carry = field == 0 ? vdf::colscan_carry_kernel<0> : vdf::colscan_carry_kernel<1>;
+  cudaError_t err =
+      cudaFuncSetAttribute(tile, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(carry, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(batch * tiles));
+  tile<<<grid, vdf::PBLOCK, shared, s>>>((const uint32_t*)sums, (const int32_t*)flags,
+                                         (uint32_t*)thread_v, (int32_t*)thread_f, cols, tiles,
+                                         per_thread);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rows<<<dim3((unsigned)batch), vdf::PBLOCK, 0, s>>>(
+      (const uint32_t*)thread_v, (const int32_t*)thread_f, (uint32_t*)tile_incl, tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  carry<<<grid, vdf::PBLOCK, shared, s>>>(
+      (const uint32_t*)sums, (const int32_t*)flags, (const uint32_t*)thread_v,
+      (const int32_t*)thread_f, (const uint32_t*)tile_incl, (uint32_t*)carries, cols, tiles,
+      per_thread);
   return (int)cudaGetLastError();
 }
 
-// K6: the three levels; lvl1 holds batch * 256 * 2 points, lvl2
-// batch * 16 * 3, out batch points.
+// K6: the halving steps of each chunk of 2^chunk_bits buckets with a block
+// of `threads` a chunk, then the steps across chunks and the Horner with a
+// block a batch row.  scratch holds batch * BUCKET_SCRATCH points.
 extern "C" int vdf_bucket(int field, const void* tails, const void* tail_col,
-                          const void* carries, void* lvl1, void* lvl2, void* out,
-                          int64_t cols, int64_t batch, void* stream) {
-  if (bad_field(field) || cols <= 0) return (int)cudaErrorInvalidValue;
+                          const void* carries, void* scratch, void* out, int64_t cols,
+                          int64_t batch, int chunk_bits, int threads, void* stream) {
+  if (bad_field(field) || cols <= 0 || chunk_bits < 1 || chunk_bits > vdf::WINDOW_BITS ||
+      threads < 1 || threads > vdf::BUCKET_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
   if (batch <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  auto level1 = field == 0 ? vdf::bucket_level1_kernel<0> : vdf::bucket_level1_kernel<1>;
-  auto level2 = field == 0 ? vdf::bucket_level2_kernel<0> : vdf::bucket_level2_kernel<1>;
-  auto final_ = field == 0 ? vdf::bucket_final_kernel<0> : vdf::bucket_final_kernel<1>;
-  level1<<<grid_of(batch * (vdf::NB / vdf::RADIX), vdf::PBLOCK), vdf::PBLOCK, 0, s>>>(
+  auto tree = field == 0 ? vdf::bucket_tree_kernel<0> : vdf::bucket_tree_kernel<1>;
+  auto finish = field == 0 ? vdf::bucket_finish_kernel<0> : vdf::bucket_finish_kernel<1>;
+  tree<<<dim3((unsigned)(batch * (vdf::NB >> chunk_bits))), threads, 0, s>>>(
       (const uint32_t*)tails, (const int32_t*)tail_col, (const uint32_t*)carries,
-      (uint32_t*)lvl1, cols, batch);
-  cudaError_t err = cudaGetLastError();
+      (uint32_t*)scratch, cols, chunk_bits);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  level2<<<grid_of(batch * vdf::RADIX, vdf::PBLOCK), vdf::PBLOCK, 0, s>>>(
-      (const uint32_t*)lvl1, (uint32_t*)lvl2, batch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  final_<<<grid_of(batch, vdf::PBLOCK), vdf::PBLOCK, 0, s>>>((const uint32_t*)lvl2,
-                                                              (uint32_t*)out, batch);
+  finish<<<dim3((unsigned)batch), vdf::FINISH_THREADS, 0, s>>>((uint32_t*)scratch,
+                                                               (uint32_t*)out, chunk_bits);
   return (int)cudaGetLastError();
 }
 

@@ -33,21 +33,22 @@
 //                             partial run sum and whether it holds a head
 //                             (replaces _scan_kernel; the TPU wrote every
 //                             prefix and compacted the tails afterwards).
-//   K5  colscan_step_kernel,  segmented Hillis-Steele over the column
-//       carry_shift_kernel    summaries, one launch a level, then a shift:
-//                             the carry into each column (replaces
-//                             _colscan_kernel).
-//   K6  bucket_level{1,2}_kernel, bucket_final_kernel
-//                             B_b = tail + carry (bucket 0 = identity), then
-//                             sum_b b B_b in three radix-16 levels: a thread
-//                             walks 16 entries keeping the running sum and
-//                             the sum of running sums (= sum_t t V_t), and
-//                             the levels combine as
-//                             A1 + 16 (A2 + 16 A3) (replaces _bucket_kernel,
-//                             whose two suffix scans over 4,096 buckets
-//                             lived in one VMEM block; 4,096 points are
-//                             384 KB, above a block's 227 KB of shared
-//                             memory, so here they stay in global memory).
+//   K5  colscan_tile_kernel,  a blocked segmented scan over the column
+//       colscan_rows_kernel,  summaries in three passes (a tile's thread
+//       colscan_carry_kernel  totals, the tile totals of a row, then each
+//                             thread's walk): the carry into each column,
+//                             the identity for column 0 (replaces
+//                             _colscan_kernel).  See the section's note.
+//   K6  bucket_tree_kernel,   B_b = tail + carry (bucket 0 = identity), then
+//       bucket_finish_kernel  sum_b b B_b by halving: pair sums V and, for
+//                             each bit of b, a balanced tree over the
+//                             buckets that have it set, 34 operations deep
+//                             (replaces _bucket_kernel, whose two suffix
+//                             scans over 4,096 buckets lived in one VMEM
+//                             block; 4,096 points are 384 KB, above a
+//                             block's 227 KB of shared memory, so here they
+//                             stay in global memory, in the L2 cache).  See
+//                             the section's note.
 //   K7  shift_gens_kernel     table[w * n + i] = 2^(12 w) G_i: one thread a
 //                             generator, 12 doublings a window (replaces
 //                             _shift_gens_kernel).
@@ -59,19 +60,28 @@
 //                             one live element of an (8, 128) vreg).
 //
 // What bounds them on this card.  A point is 96 bytes and a complete add
-// ~14 Montgomery products, so every kernel here is bound by the latency of
+// ~14 Montgomery products, so K4, K6, K7 and K9 are bound by the latency of
 // dependent 32x32->64-bit multiply chains, not by memory: K4 does `rows`
-// dependent adds a thread, K5 one a level, K6 ~30 + ~45 + ~60 across its
-// levels, K7 264 doublings a thread, K9 264 doublings and 22 adds on a
-// single thread (its 2.2 KB of input are nothing; a redesign has to cut the
-// chain, not the bytes).  The layout's lever is parallelism:
-// K4 has batch * cols threads (cols = ceil(22 n / rows)); the wrapper picks
-// rows, and so the cost split between K4 (depth rows) and K5 (depth
-// log2 cols).  No kernel uses atomics: each add has a fixed order, so each
-// kernel equals its plain version (curves/kernels.py) bit for bit.
+// dependent adds a thread, K6 34 operations (1 + 11 adds, then 11 doublings
+// and 11 adds on one thread), K7 264 doublings a thread, K9 264 doublings
+// and 22 adds on a single thread (its 2.2 KB of input are nothing; a
+// redesign has to cut the chain, not the bytes).  K5 is 15 adds deep at the
+// commit's shape; at the MSM's it is bound by how it moves the column
+// summaries (100 MB at n = 2^20), which is why it reads them twice, writes
+// the carries once, and does both through shared memory in 16-byte pieces.
+// The layout's lever is parallelism: K4 has batch * cols threads
+// (cols = ceil(22 n / rows)); the wrapper picks rows, and so the cost split
+// between K4 (depth rows) and K5 (work and bytes by cols).  No kernel uses
+// atomics: each add has a fixed order, so each kernel equals its plain
+// version (curves/kernels.py) bit for bit.
 //
-// The bodies use no CUDA intrinsic, so tests/test_torch_msm_kernel_host.py
-// also compiles them as host C++ and runs them thread by thread.
+// tests/test_torch_msm_kernel_host.py compiles this file as host C++.  K3,
+// K4, K7 and K9 use no CUDA intrinsic and run there thread by thread as they
+// are.  K5 and K6 synchronise inside a block, so what a thread does between
+// two barriers is a __device__ function on explicit buffers; the __global__
+// kernels that call them between barriers are for nvcc alone
+// (#ifdef __CUDACC__), and the host test calls the same functions from loops
+// of its own.
 
 #pragma once
 
@@ -85,7 +95,6 @@ namespace vdf {
 constexpr int WINDOWS = 22;
 constexpr int WINDOW_BITS = 12;
 constexpr int NB = 1 << WINDOW_BITS;  // buckets a batch row
-constexpr int RADIX = 16;             // K6: NB = RADIX^3
 constexpr int PT = 3 * NL;            // u32 words a point
 constexpr int PBLOCK = 128;           // threads a block, point kernels
 constexpr int CBLOCK = 256;           // threads a block, K3
@@ -265,55 +274,394 @@ __global__ void __launch_bounds__(PBLOCK)
 }
 
 // ---------------------------------------------------------------------
-// K5: carries into the columns
+// 128-bit access to points, for K5 and K6
 // ---------------------------------------------------------------------
 
-// One Hillis-Steele level over (batch, cols) summaries: for c >= d,
-// v'[c] = f[c] ? v[c] : v[c - d] + v[c] and f'[c] = f[c] | f[c - d].
-template <int K>
-__global__ void __launch_bounds__(PBLOCK)
-    colscan_step_kernel(const uint32_t* __restrict__ v_in, const int32_t* __restrict__ f_in,
-                        uint32_t* __restrict__ v_out, int32_t* __restrict__ f_out,
-                        int64_t cols, int64_t total, int64_t d) {
-  const int64_t g = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
-  if (g >= total) return;
-  Pt v;
-  load_pt(v, v_in, g);
-  int32_t f = f_in[g];
-  if (g % cols >= d) {
-    if (!f) {
-      Pt s;
-      load_pt(s, v_in, g - d);
-      add_pt<K>(v, s, v);
-    }
-    f |= f_in[g - d];
+// A point record is 96 bytes, six 16-byte pieces; records start on 16-byte
+// boundaries (torch allocations are 512-byte aligned).
+struct alignas(16) U4 {
+  uint32_t w[4];
+};
+constexpr int PIECES = PT / 4;  // 16-byte pieces a point
+
+__device__ __forceinline__ void load_pt4(Pt& p, const U4* src) {
+  U4 q[PIECES];
+#pragma unroll
+  for (int i = 0; i < PIECES; ++i) q[i] = src[i];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    p.x[j] = q[0].w[j];
+    p.x[4 + j] = q[1].w[j];
+    p.y[j] = q[2].w[j];
+    p.y[4 + j] = q[3].w[j];
+    p.z[j] = q[4].w[j];
+    p.z[4 + j] = q[5].w[j];
   }
-  store_pt(v_out, g, v);
-  f_out[g] = f;
 }
 
-// carries[c] = inclusive[c - 1], the identity for column 0.
+__device__ __forceinline__ void store_pt4(U4* dst, const Pt& p) {
+  U4 q[PIECES];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    q[0].w[j] = p.x[j];
+    q[1].w[j] = p.x[4 + j];
+    q[2].w[j] = p.y[j];
+    q[3].w[j] = p.y[4 + j];
+    q[4].w[j] = p.z[j];
+    q[5].w[j] = p.z[4 + j];
+  }
+#pragma unroll
+  for (int i = 0; i < PIECES; ++i) dst[i] = q[i];
+}
+
+// Point i of a (.., 3, 8) array in device memory.
+__device__ __forceinline__ const U4* pt_at(const uint32_t* base, int64_t i) {
+  return reinterpret_cast<const U4*>(base + i * PT);
+}
+__device__ __forceinline__ U4* pt_at(uint32_t* base, int64_t i) {
+  return reinterpret_cast<U4*>(base + i * PT);
+}
+
+// ---------------------------------------------------------------------
+// K5: carries into the columns
+// ---------------------------------------------------------------------
+//
+// A segmented scan over the column summaries of each batch row, with the
+// operator (f1, v1) o (f2, v2) = (f1 | f2, f2 ? v2 : v1 + v2), left operand
+// first; column 0 of a row counts as flagged (nothing lies to its left).
+// A row is cut into tiles of PBLOCK * L consecutive columns, thread t of a
+// tile owning the L columns from t L on.  Three passes:
+//   1. colscan_tile_kernel, a block a tile: a thread folds its L columns
+//      from the left (colscan_reduce_thread), the block scans the PBLOCK
+//      thread totals (colscan_level_thread, at most 7 levels, stopping at
+//      the first level in which no thread adds) and writes them,
+//      inclusive, to thread_v / thread_f;
+//   2. colscan_rows_kernel, a block a batch row: the tile totals (thread
+//      PBLOCK - 1 of each tile) are scanned the same way, PBLOCK tiles at a
+//      time with the total so far carried over, into tile_incl;
+//   3. colscan_carry_kernel, a block a tile: a thread takes the scan up to
+//      the column before its first (tile_incl of the tile before + the
+//      total of the thread before, colscan_carry_thread), walks its L
+//      columns and writes the carry INTO each, exclusive: the identity for
+//      column 0.
+// The order of adds is fixed, so the plain version repeats it bit for bit.
+// The column summaries are read twice and the carries written once (a scan
+// with a launch a level would move them once a level).  Passes 1 and 3 bring
+// a tile's records through shared memory: the block copies them as
+// consecutive 16-byte pieces (a warp reads 512 consecutive bytes an access),
+// and a thread reads its own L records from there.  A thread's records are
+// followed by one spare piece, so that the eight threads of a 128-bit shared
+// access start in eight different groups of four banks (6 L + 1 is odd).
+//
+// What a thread does in each pass is a __device__ function of its index on
+// explicit buffers; barriers and the vote live in the __global__ kernels
+// below them, which only nvcc compiles.  The host test calls the same
+// functions thread after thread, level after level.
+
+constexpr int SCAN_WORDS = PT * PBLOCK;  // one block-scan buffer: word j of thread t at j * PBLOCK + t
+
+// Piece `q` of a tile's records (piece q % 6 of record q / 6) in the staged
+// layout, and the first piece of thread t's l-th record there.
+__device__ __forceinline__ int64_t stage_piece(int64_t q, int per_thread) {
+  return q + q / (PIECES * per_thread);
+}
+__device__ __forceinline__ int64_t stage_slot(int t, int l, int per_thread) {
+  return (int64_t)t * (PIECES * per_thread + 1) + PIECES * l;
+}
+// Pieces of shared memory a staged tile takes (for the launcher).
+constexpr int64_t stage_pieces(int per_thread) {
+  return (int64_t)PBLOCK * (PIECES * per_thread + 1);
+}
+
+__device__ __forceinline__ void load_scan(Pt& p, const uint32_t* buf, int t) {
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    p.x[j] = buf[j * PBLOCK + t];
+    p.y[j] = buf[(NL + j) * PBLOCK + t];
+    p.z[j] = buf[(2 * NL + j) * PBLOCK + t];
+  }
+}
+
+__device__ __forceinline__ void store_scan(uint32_t* buf, int t, const Pt& p) {
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    buf[j * PBLOCK + t] = p.x[j];
+    buf[(NL + j) * PBLOCK + t] = p.y[j];
+    buf[(2 * NL + j) * PBLOCK + t] = p.z[j];
+  }
+}
+
+// Pass 1, thread t of a tile whose first column in the row is col: the fold
+// of its columns (col + l for l < per_thread, those below cols) from the
+// staged records; returns the fold's flag.  A thread wholly past the row's
+// end gives (1, identity), which nothing to its left reads.
+template <int K>
+__device__ __forceinline__ int colscan_reduce_thread(Pt& acc, const U4* stage,
+                                                     const int32_t* row_flags, int64_t col,
+                                                     int64_t cols, int t, int per_thread) {
+  if (col >= cols) {
+    set_identity<K>(acc);
+    return 1;
+  }
+  load_pt4(acc, stage + stage_slot(t, 0, per_thread));
+  int f = col == 0 || row_flags[col] != 0;
+  Pt v;
+#pragma unroll 1
+  for (int l = 1; l < per_thread && col + l < cols; ++l) {
+    load_pt4(v, stage + stage_slot(t, l, per_thread));
+    if (row_flags[col + l] != 0) {
+      copy_pt(acc, v);
+      f = 1;
+    } else {
+      add_pt<K>(acc, acc, v);
+    }
+  }
+  return f;
+}
+
+// One Hillis-Steele level over a block's PBLOCK (flag, value) pairs, from
+// one buffer into another: for t >= d, v'[t] = f[t] ? v[t] : v[t - d] + v[t]
+// and f'[t] = f[t] | f[t - d]; below d a copy.  Once a level has no thread
+// that adds, every t >= d is flagged and no later level changes anything.
+__device__ __forceinline__ bool colscan_level_adds(const int32_t* f_in, int t, int d) {
+  return t >= d && f_in[t] == 0;
+}
+
+template <int K>
+__device__ __forceinline__ void colscan_level_thread(const uint32_t* v_in, const int32_t* f_in,
+                                                     uint32_t* v_out, int32_t* f_out, int t,
+                                                     int d) {
+  Pt v;
+  load_scan(v, v_in, t);
+  int32_t f = f_in[t];
+  if (t >= d) {
+    if (!f) {
+      Pt s;
+      load_scan(s, v_in, t - d);
+      add_pt<K>(v, s, v);
+    }
+    f |= f_in[t - d];
+  }
+  store_scan(v_out, t, v);
+  f_out[t] = f;
+}
+
+// Pass 2, thread t of the block of batch row k, PBLOCK tiles from tile0 on:
+// load tile tile0 + t's total into the scan buffer (past the row's last tile:
+// flagged identity) ...
+template <int K>
+__device__ __forceinline__ void colscan_rows_load_thread(uint32_t* v, int32_t* f,
+                                                         const uint32_t* thread_v,
+                                                         const int32_t* thread_f, int64_t k,
+                                                         int64_t tiles, int64_t tile0, int t) {
+  Pt p;
+  int32_t flag = 1;
+  if (tile0 + t < tiles) {
+    const int64_t last = (k * tiles + tile0 + t) * PBLOCK + PBLOCK - 1;
+    load_pt4(p, pt_at(thread_v, last));
+    flag = thread_f[last];
+  } else {
+    set_identity<K>(p);
+  }
+  store_scan(v, t, p);
+  f[t] = flag;
+}
+
+// ... and, the PBLOCK totals scanned, add the row's scan up to tile0 - 1
+// where the tile's own scan holds no head, and write tile_incl.
+template <int K>
+__device__ __forceinline__ void colscan_rows_store_thread(const uint32_t* v, const int32_t* f,
+                                                          uint32_t* tile_incl, int64_t k,
+                                                          int64_t tiles, int64_t tile0, int t) {
+  if (tile0 + t >= tiles) return;
+  Pt p;
+  load_scan(p, v, t);
+  if (tile0 > 0 && !f[t]) {
+    Pt before;
+    load_pt4(before, pt_at(tile_incl, k * tiles + tile0 - 1));
+    add_pt<K>(p, before, p);
+  }
+  store_pt4(pt_at(tile_incl, k * tiles + tile0 + t), p);
+}
+
+// Pass 3, thread t of tile `tile` of batch row k: the carry into each of its
+// columns, written over the staged column sums.  The first tile of a row
+// has every thread total flagged (column 0 counts as a head), so tile_incl
+// is read only from the second tile on.
+template <int K>
+__device__ __forceinline__ void colscan_carry_thread(U4* stage, const int32_t* row_flags,
+                                                     const uint32_t* thread_v,
+                                                     const int32_t* thread_f,
+                                                     const uint32_t* tile_incl, int64_t k,
+                                                     int64_t tile, int64_t tiles, int64_t cols,
+                                                     int t, int per_thread) {
+  const int64_t col = (tile * PBLOCK + t) * per_thread;
+  if (col >= cols) return;
+  Pt e, v;
+  if (t > 0) {
+    const int64_t before = (k * tiles + tile) * PBLOCK + t - 1;
+    load_pt4(e, pt_at(thread_v, before));
+    if (!thread_f[before]) {
+      load_pt4(v, pt_at(tile_incl, k * tiles + tile - 1));
+      add_pt<K>(e, v, e);
+    }
+  } else if (tile > 0) {
+    load_pt4(e, pt_at(tile_incl, k * tiles + tile - 1));
+  } else {
+    set_identity<K>(e);
+  }
+#pragma unroll 1
+  for (int l = 0; l < per_thread && col + l < cols; ++l) {
+    U4* slot = stage + stage_slot(t, l, per_thread);
+    load_pt4(v, slot);
+    store_pt4(slot, e);
+    if (l + 1 == per_thread || col + l + 1 >= cols) break;
+    if (col + l == 0 || row_flags[col + l] != 0) {
+      copy_pt(e, v);
+    } else {
+      add_pt<K>(e, e, v);
+    }
+  }
+}
+
+#ifdef __CUDACC__
+
+// The block's copy of a tile's `records` records between device memory and
+// the staged layout, consecutive threads on consecutive 16-byte pieces.
+__device__ __forceinline__ void colscan_stage_in(U4* stage, const U4* src, int64_t records,
+                                                 int per_thread) {
+  for (int64_t q = threadIdx.x; q < records * PIECES; q += PBLOCK)
+    stage[stage_piece(q, per_thread)] = src[q];
+  __syncthreads();
+}
+
+__device__ __forceinline__ void colscan_stage_out(U4* dst, const U4* stage, int64_t records,
+                                                  int per_thread) {
+  __syncthreads();
+  for (int64_t q = threadIdx.x; q < records * PIECES; q += PBLOCK)
+    dst[q] = stage[stage_piece(q, per_thread)];
+}
+
+// The Hillis-Steele levels over buffer 0 of v (2 * SCAN_WORDS) and f
+// (2 * PBLOCK), ping-ponging; returns the buffer that holds the scan.  The
+// caller has synchronised after filling buffer 0.
+template <int K>
+__device__ __forceinline__ int colscan_block_scan(uint32_t* v, int32_t* f) {
+  const int t = threadIdx.x;
+  int cur = 0;
+  for (int d = 1; d < PBLOCK; d *= 2) {
+    if (!__syncthreads_or(colscan_level_adds(f + cur * PBLOCK, t, d))) break;
+    colscan_level_thread<K>(v + cur * SCAN_WORDS, f + cur * PBLOCK, v + (cur ^ 1) * SCAN_WORDS,
+                            f + (cur ^ 1) * PBLOCK, t, d);
+    __syncthreads();
+    cur ^= 1;
+  }
+  return cur;
+}
+
+// Dynamic shared memory of passes 1 and 3: the staged tile; in pass 1 the
+// two scan buffers and their flags take its place once the fold is done.
+extern __shared__ U4 colscan_shared[];
+constexpr int64_t COLSCAN_SCAN_BYTES = 2 * (SCAN_WORDS + PBLOCK) * 4;
+
 template <int K>
 __global__ void __launch_bounds__(PBLOCK)
-    carry_shift_kernel(const uint32_t* __restrict__ incl, uint32_t* __restrict__ carries,
-                       int64_t cols, int64_t total) {
-  const int64_t g = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
-  if (g >= total) return;
-  Pt v;
-  if (g % cols == 0) {
-    set_identity<K>(v);
-  } else {
-    load_pt(v, incl, g - 1);
-  }
-  store_pt(carries, g, v);
+    colscan_tile_kernel(const uint32_t* __restrict__ sums, const int32_t* __restrict__ flags,
+                        uint32_t* __restrict__ thread_v, int32_t* __restrict__ thread_f,
+                        int64_t cols, int64_t tiles, int per_thread) {
+  const int t = threadIdx.x;
+  const int64_t k = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int64_t col0 = tile * PBLOCK * per_thread;
+  const int64_t records = cols - col0 < PBLOCK * per_thread ? cols - col0 : PBLOCK * per_thread;
+  colscan_stage_in(colscan_shared, pt_at(sums, k * cols + col0), records, per_thread);
+  Pt acc;
+  const int flag = colscan_reduce_thread<K>(acc, colscan_shared, flags + k * cols,
+                                            col0 + (int64_t)t * per_thread, cols, t, per_thread);
+  __syncthreads();  // the staged records are dead: the scan buffers take their place
+  uint32_t* v = reinterpret_cast<uint32_t*>(colscan_shared);
+  int32_t* f = reinterpret_cast<int32_t*>(v + 2 * SCAN_WORDS);
+  store_scan(v, t, acc);
+  f[t] = flag;
+  __syncthreads();
+  const int cur = colscan_block_scan<K>(v, f);
+  load_scan(acc, v + cur * SCAN_WORDS, t);
+  const int64_t g = (int64_t)blockIdx.x * PBLOCK + t;
+  store_pt4(pt_at(thread_v, g), acc);
+  thread_f[g] = f[cur * PBLOCK + t];
 }
+
+template <int K>
+__global__ void __launch_bounds__(PBLOCK)
+    colscan_rows_kernel(const uint32_t* __restrict__ thread_v,
+                        const int32_t* __restrict__ thread_f, uint32_t* tile_incl,
+                        int64_t tiles) {
+  __shared__ uint32_t v[2 * SCAN_WORDS];
+  __shared__ int32_t f[2 * PBLOCK];
+  const int t = threadIdx.x;
+  const int64_t k = blockIdx.x;
+  for (int64_t tile0 = 0; tile0 < tiles; tile0 += PBLOCK) {
+    colscan_rows_load_thread<K>(v, f, thread_v, thread_f, k, tiles, tile0, t);
+    __syncthreads();
+    const int cur = colscan_block_scan<K>(v, f);
+    colscan_rows_store_thread<K>(v + cur * SCAN_WORDS, f + cur * PBLOCK, tile_incl, k, tiles,
+                                 tile0, t);
+    __syncthreads();  // tile_incl[tile0 + PBLOCK - 1] is read by the next round
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(PBLOCK)
+    colscan_carry_kernel(const uint32_t* __restrict__ sums, const int32_t* __restrict__ flags,
+                         const uint32_t* __restrict__ thread_v,
+                         const int32_t* __restrict__ thread_f,
+                         const uint32_t* __restrict__ tile_incl, uint32_t* __restrict__ carries,
+                         int64_t cols, int64_t tiles, int per_thread) {
+  const int64_t k = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int64_t col0 = tile * PBLOCK * per_thread;
+  const int64_t records = cols - col0 < PBLOCK * per_thread ? cols - col0 : PBLOCK * per_thread;
+  colscan_stage_in(colscan_shared, pt_at(sums, k * cols + col0), records, per_thread);
+  colscan_carry_thread<K>(colscan_shared, flags + k * cols, thread_v, thread_f, tile_incl, k,
+                          tile, tiles, cols, threadIdx.x, per_thread);
+  colscan_stage_out(pt_at(carries, k * cols + col0), colscan_shared, records, per_thread);
+}
+
+#endif  // __CUDACC__
 
 // ---------------------------------------------------------------------
 // K6: sum_b b B_b a batch row
 // ---------------------------------------------------------------------
-
+//
 // B_b = tail + carry into the tail's column (when the run's head lies in
-// an earlier column); bucket 0 is the identity.
+// an earlier column); bucket 0 is the identity.  With V0_b = B_b, step
+// s = 1 .. 11 halves: Vs_i = V(s-1)_(2i) + V(s-1)_(2i+1), so Vs_i sums the
+// buckets b with b >> s == i, and O_j, the sum of the odd entries of
+// V(j-1), sums the buckets whose bit j - 1 is set:
+//   sum_b b B_b = O_1 + 2 (O_2 + 2 (O_3 + ... + 2 O_12)).
+// O_j is a balanced tree over its NB >> j leaves (neighbours pair, left
+// operand first), level r of it computed in step j - 1 + r, so every tree
+// ends with step 11, where O_12 = V11_1.  Step s has (NB >> s) +
+// s (NB >> (s + 1)) independent adds (bucket_step_thread): 4,094 + 4,083 in
+// all, then 11 doublings and 11 adds on one thread (bucket_horner_thread):
+// 1 + 11 + 22 = 34 dependent operations.
+//
+// The first steps of an aligned chunk of 2^m buckets read nothing outside
+// it, so bucket_tree_kernel runs step 0 (the carries) and steps 1 .. m - 1
+// with a block a chunk, and bucket_finish_kernel the steps from m on and the
+// Horner with a block a batch row: the launch boundary is the one barrier
+// across blocks.  The steps' results lie in scratch the caller gives,
+// BUCKET_SCRATCH points a batch row, which stays in the L2 cache: every Vs
+// and every tree level has points of its own (2 NB for V0 .. V11, NB for the
+// trees), because the blocks of two chunks are not in step with each other
+// and a chunk's Vs would otherwise land on entries of V(s-2) that its
+// neighbour still reads.  No step reads what the same step writes, so the
+// host test runs a step thread after thread.  Where the schedule is cut (m,
+// and the threads a block) changes no add and no output bit.
+
+constexpr int TREE_STEPS = WINDOW_BITS - 1;        // halving steps 1 .. 11
+constexpr int BUCKET_SCRATCH = 3 * NB;            // points a batch row
+constexpr int BUCKET_MAX_THREADS = 512;
+constexpr int FINISH_THREADS = 256;
+
 template <int K>
 __device__ __forceinline__ void load_bucket(Pt& B, const uint32_t* tails,
                                             const int32_t* tail_col,
@@ -323,113 +671,121 @@ __device__ __forceinline__ void load_bucket(Pt& B, const uint32_t* tails,
     set_identity<K>(B);
     return;
   }
-  load_pt(B, tails, k * NB + b);
+  load_pt4(B, pt_at(tails, k * NB + b));
   const int32_t c = tail_col[k * NB + b];
   if (c >= 0) {
     Pt carry;
-    load_pt(carry, carries, k * cols + c);
+    load_pt4(carry, pt_at(carries, k * cols + c));
     add_pt<K>(B, B, carry);
   }
 }
 
-// Level 1, one thread a chunk of RADIX buckets V_t = B_{RADIX j + t}:
-// lvl1[k, j] = (run = sum_t V_t, acc = sum_t t V_t).  Walking t down,
-// run holds S_t = sum_{t' >= t} V_t' and acc = S_15 + ... + S_1.
-template <int K>
-__global__ void __launch_bounds__(PBLOCK)
-    bucket_level1_kernel(const uint32_t* __restrict__ tails,
-                         const int32_t* __restrict__ tail_col,
-                         const uint32_t* __restrict__ carries, uint32_t* __restrict__ lvl1,
-                         int64_t cols, int64_t batch) {
-  constexpr int64_t chunks = NB / RADIX;
-  const int64_t g = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
-  if (g >= batch * chunks) return;
-  const int64_t k = g / chunks, base = (g % chunks) * RADIX;
-  Pt run, acc, v;
-  load_bucket<K>(run, tails, tail_col, carries, k, base + RADIX - 1, cols);
-  load_bucket<K>(v, tails, tail_col, carries, k, base + RADIX - 2, cols);
-  copy_pt(acc, run);
-  add_pt<K>(run, run, v);
-#pragma unroll 1
-  for (int t = RADIX - 3; t >= 0; --t) {
-    load_bucket<K>(v, tails, tail_col, carries, k, base + t, cols);
-    add_pt<K>(acc, acc, run);
-    add_pt<K>(run, run, v);
-  }
-  store_pt(lvl1, 2 * g, run);
-  store_pt(lvl1, 2 * g + 1, acc);
+// A batch row's scratch: Vs (NB >> s points) after V0 .. V(s-1), then the trees.
+__device__ __forceinline__ uint32_t* bucket_v(uint32_t* scratch, int64_t k, int s) {
+  return scratch + (k * BUCKET_SCRATCH + (2 * NB - ((2 * NB) >> s))) * PT;
+}
+// Level r (1 .. 12 - j) of O_j's tree: tree j lies after the trees before it
+// (NB >> j' points each), its levels one after another (NB >> (j + r')).
+__device__ __forceinline__ uint32_t* bucket_tree(uint32_t* scratch, int64_t k, int j, int r) {
+  const int64_t at = (NB - (NB >> (j - 1))) + ((NB >> j) - (NB >> (j + r - 1)));
+  return scratch + (k * BUCKET_SCRATCH + 2 * NB + at) * PT;
 }
 
-// Level 2, one thread a chunk of RADIX level-1 outputs (run1, acc1):
-// lvl2[k, j] = (run = sum_t run1_t, acc = sum_t t run1_t, sum_t acc1_t).
+// Step 0 for bucket b of batch row k.
 template <int K>
-__global__ void __launch_bounds__(PBLOCK)
-    bucket_level2_kernel(const uint32_t* __restrict__ lvl1, uint32_t* __restrict__ lvl2,
-                         int64_t batch) {
-  const int64_t g = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
-  if (g >= batch * RADIX) return;
-  const int64_t e = g * RADIX;  // first level-1 entry of the chunk
-  Pt run, acc, s, v;
-  load_pt(run, lvl1, 2 * (e + RADIX - 1));
-  load_pt(s, lvl1, 2 * (e + RADIX - 1) + 1);
-  copy_pt(acc, run);
-  load_pt(v, lvl1, 2 * (e + RADIX - 2));
-  add_pt<K>(run, run, v);
-  load_pt(v, lvl1, 2 * (e + RADIX - 2) + 1);
-  add_pt<K>(s, s, v);
-#pragma unroll 1
-  for (int t = RADIX - 3; t >= 0; --t) {
-    add_pt<K>(acc, acc, run);
-    load_pt(v, lvl1, 2 * (e + t));
-    add_pt<K>(run, run, v);
-    load_pt(v, lvl1, 2 * (e + t) + 1);
-    add_pt<K>(s, s, v);
-  }
-  store_pt(lvl2, 3 * g, run);
-  store_pt(lvl2, 3 * g + 1, acc);
-  store_pt(lvl2, 3 * g + 2, s);
+__device__ __forceinline__ void bucket_load_thread(const uint32_t* tails,
+                                                   const int32_t* tail_col,
+                                                   const uint32_t* carries, uint32_t* scratch,
+                                                   int64_t k, int64_t b, int64_t cols) {
+  Pt B;
+  load_bucket<K>(B, tails, tail_col, carries, k, b, cols);
+  store_pt4(pt_at(bucket_v(scratch, k, 0), b), B);
 }
 
-// Level 3, one thread a batch row: A3 = sum_t t run2_t, A2 = sum_t acc2_t,
-// A1 = sum_t sum1_t, and out = A1 + 16 (A2 + 16 A3) by Horner.
-template <int K>
-__global__ void __launch_bounds__(PBLOCK)
-    bucket_final_kernel(const uint32_t* __restrict__ lvl2, uint32_t* __restrict__ out,
-                        int64_t batch) {
-  const int64_t g = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
-  if (g >= batch) return;
-  const int64_t e = g * RADIX;
-  Pt run, acc, a2, a1, v;
-  load_pt(run, lvl2, 3 * (e + RADIX - 1));
-  load_pt(a2, lvl2, 3 * (e + RADIX - 1) + 1);
-  load_pt(a1, lvl2, 3 * (e + RADIX - 1) + 2);
-  copy_pt(acc, run);
-  load_pt(v, lvl2, 3 * (e + RADIX - 2));
-  add_pt<K>(run, run, v);
-  load_pt(v, lvl2, 3 * (e + RADIX - 2) + 1);
-  add_pt<K>(a2, a2, v);
-  load_pt(v, lvl2, 3 * (e + RADIX - 2) + 2);
-  add_pt<K>(a1, a1, v);
-#pragma unroll 1
-  for (int t = RADIX - 3; t >= 0; --t) {
-    add_pt<K>(acc, acc, run);
-    if (t > 0) {  // the level's total has no weight
-      load_pt(v, lvl2, 3 * (e + t));
-      add_pt<K>(run, run, v);
-    }
-    load_pt(v, lvl2, 3 * (e + t) + 1);
-    add_pt<K>(a2, a2, v);
-    load_pt(v, lvl2, 3 * (e + t) + 2);
-    add_pt<K>(a1, a1, v);
-  }
-#pragma unroll 1
-  for (int s = 0; s < 4; ++s) dbl_pt<K>(acc, acc);  // RADIX = 2^4
-  add_pt<K>(acc, acc, a2);
-#pragma unroll 1
-  for (int s = 0; s < 4; ++s) dbl_pt<K>(acc, acc);
-  add_pt<K>(acc, acc, a1);
-  store_pt(out, g, acc);
+// Adds of step s inside a chunk of 2^m buckets (s < m, or m = 12: the row).
+__device__ __forceinline__ int64_t bucket_step_items(int s, int m) {
+  const int64_t nv = ((int64_t)1 << m) >> s;
+  return nv + s * (nv >> 1);
 }
+
+// Add w of step s in chunk c (of 2^m buckets) of batch row k: first the
+// chunk's entries of Vs, then its entries of level s - j + 1 of each tree
+// j = 1 .. s (the leaves of tree s are the odd entries of V(s-1)).
+template <int K>
+__device__ __forceinline__ void bucket_step_thread(uint32_t* scratch, int64_t k, int s, int m,
+                                                   int64_t c, int64_t w) {
+  const int64_t nv = ((int64_t)1 << m) >> s, nt = nv >> 1;
+  const uint32_t* v_in = bucket_v(scratch, k, s - 1);
+  Pt p, q;
+  if (w < nv) {
+    const int64_t i = c * nv + w;
+    load_pt4(p, pt_at(v_in, 2 * i));
+    load_pt4(q, pt_at(v_in, 2 * i + 1));
+    add_pt<K>(p, p, q);
+    store_pt4(pt_at(bucket_v(scratch, k, s), i), p);
+    return;
+  }
+  w -= nv;
+  const int j = 1 + (int)(w / nt), r = s - j + 1;
+  const int64_t i = c * nt + w % nt;
+  if (r == 1) {
+    load_pt4(p, pt_at(v_in, 4 * i + 1));
+    load_pt4(q, pt_at(v_in, 4 * i + 3));
+  } else {
+    const uint32_t* level = bucket_tree(scratch, k, j, r - 1);
+    load_pt4(p, pt_at(level, 2 * i));
+    load_pt4(q, pt_at(level, 2 * i + 1));
+  }
+  add_pt<K>(p, p, q);
+  store_pt4(pt_at(bucket_tree(scratch, k, j, r), i), p);
+}
+
+// After step 11: out[k] = O_1 + 2 (O_2 + ... + 2 O_12), from the top down.
+template <int K>
+__device__ __forceinline__ void bucket_horner_thread(uint32_t* scratch, uint32_t* out,
+                                                     int64_t k) {
+  Pt acc, o;
+  load_pt4(acc, pt_at(bucket_v(scratch, k, TREE_STEPS), 1));  // O_12 = V11_1
+#pragma unroll 1
+  for (int j = TREE_STEPS; j >= 1; --j) {
+    dbl_pt<K>(acc, acc);
+    load_pt4(o, pt_at(bucket_tree(scratch, k, j, WINDOW_BITS - j), 0));
+    add_pt<K>(acc, acc, o);
+  }
+  store_pt4(pt_at(out, k), acc);
+}
+
+#ifdef __CUDACC__
+
+template <int K>
+__global__ void __launch_bounds__(BUCKET_MAX_THREADS)
+    bucket_tree_kernel(const uint32_t* __restrict__ tails, const int32_t* __restrict__ tail_col,
+                       const uint32_t* __restrict__ carries, uint32_t* scratch, int64_t cols,
+                       int m) {
+  const int64_t chunks = NB >> m, chunk = (int64_t)1 << m;
+  const int64_t k = blockIdx.x / chunks, c = blockIdx.x % chunks;
+  for (int64_t b = threadIdx.x; b < chunk; b += blockDim.x)
+    bucket_load_thread<K>(tails, tail_col, carries, scratch, k, c * chunk + b, cols);
+  for (int s = 1; s < m; ++s) {
+    __syncthreads();
+    for (int64_t w = threadIdx.x; w < bucket_step_items(s, m); w += blockDim.x)
+      bucket_step_thread<K>(scratch, k, s, m, c, w);
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(FINISH_THREADS)
+    bucket_finish_kernel(uint32_t* scratch, uint32_t* __restrict__ out, int m) {
+  const int64_t k = blockIdx.x;
+  for (int s = m; s <= TREE_STEPS; ++s) {
+    for (int64_t w = threadIdx.x; w < bucket_step_items(s, WINDOW_BITS); w += blockDim.x)
+      bucket_step_thread<K>(scratch, k, s, WINDOW_BITS, 0, w);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) bucket_horner_thread<K>(scratch, out, k);
+}
+
+#endif  // __CUDACC__
 
 // ---------------------------------------------------------------------
 // K9: sum_w 2^(12 w) S_w a batch row

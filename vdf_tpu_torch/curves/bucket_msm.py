@@ -38,9 +38,9 @@ from .kernels import (
 from .point import CURVES, Point, unstack_point
 
 # K4's column height.  cols = ceil(W n / ROWS) threads a batch row walk
-# ROWS items each, and K5 takes ceil(log2 cols) levels.  At n = 2^14,
-# 22 gives 16,384 columns (one block of 128 threads an SM) and 14 levels;
-# see PERF.md for the measured split.
+# ROWS items each; K5 scans the cols column summaries in tiles (depth 15
+# adds up to 16,384 columns, which n = 2^14 gives with 22: one block of 128
+# threads an SM in K4).  See PERF.md for the readings at 11, 16 and 22.
 ROWS = 22
 
 

@@ -36,8 +36,8 @@ Layouts (int32 limb bit patterns, points stacked ``(..., 3, 8)``):
   horner        K9         window sums (B, W, 3, 8), least significant
                            first -> (B, 3, 8): sum_w 2^(12 w) S_w
 
-``LAUNCHES`` counts wrapper calls that launched their kernel (K5 and K6
-launch several passes a call and count once).
+``LAUNCHES`` counts wrapper calls that launched their kernel (K5 is three
+passes a call and K6 two, each counted once).
 """
 
 from __future__ import annotations
@@ -58,7 +58,16 @@ from .point import (
 WINDOWS = 22  # W: 22 windows of 12 bits cover any Pasta scalar
 WINDOW_BITS = 12  # c
 NB = 1 << WINDOW_BITS  # buckets a batch row
-RADIX = 16  # K6's level width: NB = RADIX^3
+PBLOCK = 128  # threads a block of the point kernels (csrc/msm_kernels.cuh)
+# K6: where its schedule is cut between the two launches (chunks of
+# 2^BUCKET_CHUNK_BITS buckets, a block of BUCKET_THREADS each), and the
+# points of scratch a batch row takes.  The cut changes no output bit.
+BUCKET_CHUNK_BITS = 7
+BUCKET_THREADS = 128
+BUCKET_SCRATCH = 3 * NB
+# Batch rows K6's plain version takes at once: with more, its digit tensors
+# fall out of a CPU's caches and a row costs half as much again.
+PLAIN_ROWS = 4
 
 LAUNCHES = {
     "canon_digits": 0,
@@ -300,6 +309,16 @@ def bucket_scan_plain(field_name: str, table: torch.Tensor, keys: torch.Tensor, 
 # ---------------------------------------------------------------------
 
 
+def carry_columns(cols: int) -> int:
+    """L, the consecutive columns a thread of K5 owns, from the row length
+    alone: one while a row is at most PBLOCK tiles of PBLOCK columns (the
+    commit's shape, where the depth of 7 + 7 + 1 adds is what costs), four
+    beyond (the MSM's, where the adds and the bytes are: fewer adds than
+    with one or two, and a tile of 512 records leaves room for four blocks
+    on an SM, where eight a thread leave room for two)."""
+    return 1 if cols <= PBLOCK * PBLOCK else 4
+
+
 def column_carries(field_name: str, col_sums: torch.Tensor, col_flags: torch.Tensor):
     """K5 (replaces pallas_msm._colscan_kernel): the carry flowing into
     each column, (K, cols, 3, 8); the identity for column 0."""
@@ -313,30 +332,107 @@ def column_carries(field_name: str, col_sums: torch.Tensor, col_flags: torch.Ten
         return column_carries_plain(field_name, col_sums, col_flags)
     carries = torch.empty_like(col_sums)
     if k:
-        scratch_v = torch.empty((2, k, cols, 3, NLIMBS), dtype=torch.int32, device=device)
-        scratch_f = torch.empty((2, k, cols), dtype=torch.int32, device=device)
+        per_thread = carry_columns(cols)
+        tiles = -(-cols // (PBLOCK * per_thread))
+        thread_v = torch.empty((k, tiles * PBLOCK, 3, NLIMBS), dtype=torch.int32, device=device)
+        thread_f = torch.empty((k, tiles * PBLOCK), dtype=torch.int32, device=device)
+        tile_incl = torch.empty((k, tiles, 3, NLIMBS), dtype=torch.int32, device=device)
         _launch("vdf_colscan", "colscan", device, _field_index(field_name),
-                col_sums.data_ptr(), col_flags.data_ptr(), scratch_v.data_ptr(),
-                scratch_f.data_ptr(), carries.data_ptr(), cols, k)
+                col_sums.data_ptr(), col_flags.data_ptr(), thread_v.data_ptr(),
+                thread_f.data_ptr(), tile_incl.data_ptr(), carries.data_ptr(), cols, k,
+                per_thread)
     return carries
 
 
-def column_carries_plain(field_name: str, col_sums: torch.Tensor, col_flags: torch.Tensor):
-    k, cols = col_flags.shape
-    v = point_to_digits(col_sums)
-    f = col_flags != 0
-    c = torch.arange(cols, device=col_flags.device).expand(k, cols)
+def _scan_block(field_name: str, v, f: torch.Tensor):
+    """Segmented Hillis-Steele over the PBLOCK entries of axis -2 of the
+    digit-tuple point ``v`` (flags ``f`` over axis -1): at distance d, entry
+    t >= d without a flag becomes v[t - d] + v[t].  Stops at the first level
+    in which no entry adds, as every block of the kernel does (a level
+    without adds changes nothing in a block)."""
+    t = torch.arange(PBLOCK, device=f.device)
     d = 1
-    while d < cols:  # one Hillis-Steele level: v[c] = v[c-d] + v[c] unless flagged
-        sv = tuple(torch.roll(a, d, dims=1) for a in v)
-        comb = select16(f, v, add16(field_name, sv, v))
-        keep = c < d
-        v = select16(keep, v, comb)
-        f = torch.where(keep, f, f | torch.roll(f, d, dims=1))
+    while d < PBLOCK:
+        adds = (t >= d) & ~f
+        if not bool(adds.any()):
+            break
+        left = tuple(torch.roll(a, d, dims=-2) for a in v)
+        v = select16(adds, add16(field_name, left, v), v)
+        f = torch.where(t >= d, f | torch.roll(f, d, dims=-1), f)
         d *= 2
-    incl = point_from_digits(v)
-    first = _identity_rows(field_name, (k, 1), col_sums.device)
-    return torch.cat([first, incl[:, :-1]], 1)
+    return v, f
+
+
+def _pad_axis(p, f: torch.Tensor, axis: int, size: int, field_name: str):
+    """Pad the digit-tuple point ``p`` and its flags along ``axis`` (counted
+    over the flags' axes) to ``size`` entries of (flagged, identity)."""
+    extra = size - f.shape[axis]
+    if extra == 0:
+        return p, f
+    shape = list(f.shape)
+    shape[axis] = extra
+    fill = identity16(field_name, p[0].new_zeros(*shape, p[0].shape[-1]))
+    p = tuple(torch.cat([a, b], dim=axis) for a, b in zip(p, fill))
+    return p, torch.cat([f, f.new_ones(shape)], dim=axis)
+
+
+def column_carries_plain(field_name: str, col_sums: torch.Tensor, col_flags: torch.Tensor,
+                         per_thread: int | None = None):
+    """The kernel's three passes, vectorised over its threads: tiles of
+    PBLOCK * L columns, a thread's L columns folded from the left, the
+    thread totals scanned a tile, the tile totals scanned a row, then each
+    thread's walk from the scan before its first column.  ``per_thread`` is
+    L (the tests cross tile edges at small sizes with it); by default the
+    kernel's own choice."""
+    k, cols = col_flags.shape
+    L = carry_columns(cols) if per_thread is None else per_thread
+    span = PBLOCK * L
+    tiles = -(-cols // span)
+    f = col_flags != 0
+    f[:, 0] = True  # nothing lies to the left of a row's first column
+    v, f = _pad_axis(point_to_digits(col_sums), f, 1, tiles * span, field_name)
+    v = tuple(a.reshape(k, tiles, PBLOCK, L, -1) for a in v)
+    f = f.reshape(k, tiles, PBLOCK, L)
+
+    # Pass 1: each thread's fold, then the scan of a tile's thread totals.
+    acc, flag = _at(v, 0), f[..., 0]
+    for j in range(1, L):
+        acc = select16(f[..., j], _at(v, j), add16(field_name, acc, _at(v, j)))
+        flag = flag | f[..., j]
+    thread_v, thread_f = _scan_block(field_name, acc, flag)  # (k, tiles, PBLOCK, 16)
+
+    # Pass 2: the tile totals of a row, PBLOCK at a time.
+    tot_v, tot_f = _at(thread_v, PBLOCK - 1), thread_f[..., PBLOCK - 1]  # (k, tiles, 16)
+    parts, before = [], None
+    for t0 in range(0, tiles, PBLOCK):
+        n = min(PBLOCK, tiles - t0)
+        cv, cf = _pad_axis(tuple(a[:, t0 : t0 + n] for a in tot_v), tot_f[:, t0 : t0 + n], 1,
+                           PBLOCK, field_name)
+        cv, cf = _scan_block(field_name, cv, cf)
+        if before is not None:
+            joined = add16(field_name, tuple(b[:, None].expand_as(a) for a, b in zip(cv, before)),
+                           cv)
+            cv = select16(cf, cv, joined)
+        parts.append(tuple(a[:, :n] for a in cv))
+        before = tuple(a[:, n - 1] for a in cv)
+    tile_incl = tuple(torch.cat(c, dim=1) for c in zip(*parts))  # (k, tiles, 16)
+
+    # Pass 3: the scan up to the column before a thread's first, then its walk.
+    ident = identity16(field_name, tile_incl[0][:, :1])
+    tile_before = tuple(torch.cat([i, a[:, :-1]], dim=1)[:, :, None].expand_as(b)
+                        for i, a, b in zip(ident, tile_incl, thread_v))
+    prev_v = tuple(torch.roll(a, 1, dims=-2) for a in thread_v)
+    prev_f = torch.roll(thread_f, 1, dims=-1)
+    first = torch.arange(PBLOCK, device=f.device).expand_as(thread_f) == 0
+    e = select16(prev_f, prev_v, add16(field_name, tile_before, prev_v))
+    e = select16(first, tile_before, e)  # for the row's first tile: the identity
+    out = []
+    for j in range(L):
+        out.append(point_from_digits(e))
+        if j + 1 < L:
+            e = select16(f[..., j], _at(v, j), add16(field_name, e, _at(v, j)))
+    carries = torch.stack(out, dim=3)  # (k, tiles, PBLOCK, L, 3, 8)
+    return carries.reshape(k, tiles * span, 3, NLIMBS)[:, :cols].contiguous()
 
 
 # ---------------------------------------------------------------------
@@ -360,20 +456,11 @@ def bucket_sums(field_name: str, tails: torch.Tensor, tail_col: torch.Tensor,
         return bucket_sums_plain(field_name, tails, tail_col, carries)
     out = torch.empty((k, 3, NLIMBS), dtype=torch.int32, device=device)
     if k:
-        lvl1 = torch.empty((k, NB // RADIX, 2, 3, NLIMBS), dtype=torch.int32, device=device)
-        lvl2 = torch.empty((k, RADIX, 3, 3, NLIMBS), dtype=torch.int32, device=device)
+        scratch = torch.empty((k, BUCKET_SCRATCH, 3, NLIMBS), dtype=torch.int32, device=device)
         _launch("vdf_bucket", "bucket", device, _field_index(field_name), tails.data_ptr(),
-                tail_col.data_ptr(), carries.data_ptr(), lvl1.data_ptr(), lvl2.data_ptr(),
-                out.data_ptr(), cols, k)
+                tail_col.data_ptr(), carries.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                cols, k, BUCKET_CHUNK_BITS, BUCKET_THREADS)
     return out
-
-
-def _add_many(field_name: str, *pairs):
-    """Several independent point adds in one add16 call."""
-    p = tuple(torch.stack([a[c] for a, _ in pairs]) for c in range(3))
-    q = tuple(torch.stack([b[c] for _, b in pairs]) for c in range(3))
-    r = add16(field_name, p, q)
-    return [tuple(r[c][j] for c in range(3)) for j in range(len(pairs))]
 
 
 def _at(p, t: int):
@@ -383,48 +470,41 @@ def _at(p, t: int):
 
 def bucket_sums_plain(field_name: str, tails: torch.Tensor, tail_col: torch.Tensor,
                       carries: torch.Tensor) -> torch.Tensor:
+    """The kernel's halving schedule: V0 = the buckets; step s = 1 .. 11
+    pairs neighbours of V(s-1) into Vs and, in the same step, takes one level
+    of the tree of each O_j, j <= s (O_j: the sum of the odd entries of
+    V(j-1)); then O_1 + 2 (O_2 + ... + 2 O_12) from the top down.  All adds
+    of a step go through one add16 call."""
     k = tails.shape[0]
-    has = tail_col >= 0
-    idx = tail_col.clamp(min=0).to(torch.int64)[:, :, None, None].expand(k, NB, 3, NLIMBS)
-    t16 = point_to_digits(tails)
-    b16 = select16(has, add16(field_name, t16, point_to_digits(carries.gather(1, idx))), t16)
+    if k > PLAIN_ROWS:
+        return torch.cat([bucket_sums_plain(field_name, tails[r : r + PLAIN_ROWS],
+                                            tail_col[r : r + PLAIN_ROWS],
+                                            carries[r : r + PLAIN_ROWS])
+                          for r in range(0, k, PLAIN_ROWS)])
+    v = point_to_digits(tails)
+    rows, buckets = torch.nonzero(tail_col >= 0, as_tuple=True)
+    if rows.numel():  # the buckets that take a carry, and no others
+        cols = tail_col[rows, buckets].to(torch.int64)
+        joined = add16(field_name, tuple(a[rows, buckets] for a in v),
+                       point_to_digits(carries[rows, cols]))
+        v = tuple(a.index_put((rows, buckets), b) for a, b in zip(v, joined))
     first = torch.arange(NB, device=tails.device).expand(k, NB) == 0
-    b16 = select16(first, identity16(field_name, b16[0]), b16)
+    v = select16(first, identity16(field_name, v[0]), v)
 
-    # Level 1: chunks of RADIX buckets V_t -> run = sum V_t, acc = sum t V_t.
-    v = tuple(a.reshape(k, NB // RADIX, RADIX, -1) for a in b16)
-    run, acc = _at(v, RADIX - 1), _at(v, RADIX - 1)
-    (run,) = _add_many(field_name, (run, _at(v, RADIX - 2)))
-    for t in range(RADIX - 3, -1, -1):
-        acc, run = _add_many(field_name, (acc, run), (run, _at(v, t)))
-
-    # Level 2: chunks of RADIX (run1, acc1) -> run, acc of runs, sum of accs.
-    v = tuple(a.reshape(k, RADIX, RADIX, -1) for a in run)
-    e = tuple(a.reshape(k, RADIX, RADIX, -1) for a in acc)
-    run, acc, s = _at(v, RADIX - 1), _at(v, RADIX - 1), _at(e, RADIX - 1)
-    run, s = _add_many(field_name, (run, _at(v, RADIX - 2)), (s, _at(e, RADIX - 2)))
-    for t in range(RADIX - 3, -1, -1):
-        acc, run, s = _add_many(field_name, (acc, run), (run, _at(v, t)), (s, _at(e, t)))
-
-    # Level 3: one row of RADIX (run2, acc2, sum2) -> A3, A2, A1; Horner.
-    v, e2, e1 = run, acc, s
-    run, acc = _at(v, RADIX - 1), _at(v, RADIX - 1)
-    a2, a1 = _at(e2, RADIX - 1), _at(e1, RADIX - 1)
-    run, a2, a1 = _add_many(field_name, (run, _at(v, RADIX - 2)), (a2, _at(e2, RADIX - 2)),
-                            (a1, _at(e1, RADIX - 2)))
-    for t in range(RADIX - 3, -1, -1):
-        if t > 0:  # the level's total has no weight
-            acc, run, a2, a1 = _add_many(field_name, (acc, run), (run, _at(v, t)),
-                                         (a2, _at(e2, t)), (a1, _at(e1, t)))
-        else:
-            acc, a2, a1 = _add_many(field_name, (acc, run), (a2, _at(e2, t)),
-                                    (a1, _at(e1, t)))
-    for _ in range(4):  # RADIX = 2^4
-        acc = double16(field_name, acc)
-    (acc,) = _add_many(field_name, (acc, a2))
-    for _ in range(4):
-        acc = double16(field_name, acc)
-    (acc,) = _add_many(field_name, (acc, a1))
+    trees = []  # trees[j - 1]: the newest level of O_j's tree
+    for s in range(1, WINDOW_BITS):
+        left = [tuple(a[:, 0::2] for a in v), *(tuple(a[:, 0::2] for a in t) for t in trees),
+                tuple(a[:, 1::4] for a in v)]
+        right = [tuple(a[:, 1::2] for a in v), *(tuple(a[:, 1::2] for a in t) for t in trees),
+                 tuple(a[:, 3::4] for a in v)]
+        sums = add16(field_name, tuple(torch.cat(c, dim=1) for c in zip(*left)),
+                     tuple(torch.cat(c, dim=1) for c in zip(*right)))
+        half = NB >> (s + 1)
+        v = tuple(a[:, : 2 * half] for a in sums)
+        trees = [tuple(a[:, (2 + j) * half : (3 + j) * half] for a in sums) for j in range(s)]
+    acc = _at(v, 1)  # O_12 = V11_1
+    for t in reversed(trees):
+        acc = add16(field_name, double16(field_name, acc), _at(t, 0))
     return point_from_digits(acc)
 
 

@@ -23,8 +23,9 @@ package switches between three (bit planes below 256 points, an XLA
 Pippenger, the Pallas pipeline from 1,024 points on a TPU), runs the
 windows in groups and limits n by its uint32 sort keys.  Those answer
 XLA's dispatch cost and the TPU's memory and do not carry over: here all
-22 windows run in one pass (at n = 2^20 the keys take 185 MB and the
-column summaries 100 MB), and the keys are int64.
+22 windows run in one pass (at n = 2^20 the keys take 185 MB, the column
+summaries 100 MB, the carries as much, and K5's and K6's scratch 13 MB and
+26 MB), and the keys are int64.
 """
 
 from __future__ import annotations
