@@ -27,7 +27,8 @@ Phases (any failure exits non-zero; nothing is caught):
   4. evidence the launch counters of both kernels moved during phase 3's
              eval -> verify (read before the tamper and append checks);
   5. commit kernels  K3 (canon_digits, canon_mont), K7 (shift_gens), K4
-             (scan), K5 (colscan) and K6 (bucket) against their plain
+             (scan, in the form its wrapper picks and in each of its two
+             forms), K5 (colscan) and K6 (bucket) against their plain
              versions on the card, on Pallas and Vesta at n = 256 (K = 2
              rows): every output element bit-for-bit equal; K5 and K6 again
              at the shapes that stress their structure (rows of one column,
@@ -36,7 +37,8 @@ Phases (any failure exits non-zero; nothing is caught):
              none; a carry into no bucket and into every bucket, identity
              tails); then at the commit's main shape, n = 2^14, each
              kernel's time beside its plain version's, outputs again
-             bit-for-bit equal;
+             bit-for-bit equal, K4's time in each form (and the form its
+             wrapper picks), each form the same bits 20 launches over;
   6. commit  for Pallas and Vesta: commitment_key(curve, 2^14) (host
              derivation and K7 table timed apart), commit of xorshift
              scalars == the native C++ Pippenger in affine (Pallas; on Vesta
@@ -49,11 +51,12 @@ Phases (any failure exits non-zero; nothing is caught):
   7. evidence the launch counters of K3-K7 moved during phase 6's key ->
              table -> first commit on each curve (read before the checks);
   8. MSM kernels  K9 (horner) against its plain version on Pallas and Vesta
-             at B = 1 and B = 5, and K3's window-row layout, K4, K5, K6 in
-             the variable-base shape (22 batch rows, one a window) against
-             theirs at n = 2^12: bit for bit, K5 and K6 the same bits 20
-             launches over; then on Pallas at n = 2^20
-             each stage's time beside its plain version's on the same
+             at B = 1 and B = 5, and K3's window-row layout, K4 (each form),
+             K5, K6 in the variable-base shape (22 batch rows, one a window)
+             against theirs at n = 2^12: bit for bit, K4 (each form), K5, K6
+             and K9 the same bits 20 launches over; then on Pallas at n = 2^20
+             each stage's time (K4's in each form, each the same bits 20
+             launches over) beside its plain version's on the same
              tensors (K4's and K5's one window row at a time, to bound
              their temporaries), outputs bit for bit equal, and the 22 window
              sums == the native Pippenger on the base points with each
@@ -107,7 +110,7 @@ COMMIT_NATIVE_CURVE = "pallas"  # the curve whose 2^14 commit the native Pippeng
 MSM_N = 1 << 20  # variable-base MSM length (BASELINE config 5)
 MSM_CHECK_N = 1 << 12  # kernel-vs-plain and native-check MSM length
 MSM_BASE = 1024  # distinct base points of the MSM inputs, repeated to n
-REPEATS = 20  # launches of K5 and K6 on the same 22-row inputs that must agree bit for bit
+REPEATS = 20  # launches of K4-K6 and K9 on the same inputs that must agree bit for bit
 ENGINE_T = 1000  # MinRoot iterations a Nova step (the reference sweep point)
 ENGINE_STEPS = 2  # Nova steps
 
@@ -124,8 +127,11 @@ SMS, INT32_LANES = 132, 64
 # lower one.
 MADS_PER_PRODUCT = 2 * (64 + 24)
 MADS_PER_SQUARING = 2 * (36 + 24)
-# (squarings, products) of a complete add and of a doubling (csrc/curve.cuh)
-PRODUCTS_ADD, PRODUCTS_DBL = (0, 14), (2, 7)
+# (squarings, products) of a complete add and of a doubling (csrc/curve.cuh):
+# 12 products an add, 2 squarings and 6 products a doubling; 3b a = 15 a is a
+# small-constant multiply (a row of 8 multiplies and a subtraction), counted
+# with the additions, which the bound leaves out.
+PRODUCTS_ADD, PRODUCTS_DBL = (0, 12), (2, 6)
 
 COMMIT_KERNELS = {  # launch counter -> (wrapper in curves/kernels.py, TPU kernel it replaces)
     "canon_digits": ("canon_digits", "vdf_tpu/curves/pallas_msm.py:130"),  # K3 mode 0
@@ -497,6 +503,70 @@ def _require_same(kname: str, where: str, got, want, err: dict) -> None:
         raise SystemExit(f"{kname} {where} disagrees with its plain version (max |diff| {e})")
 
 
+def _scan_launch(a, form: str, res=None):
+    """K4 in ``form`` (one of curves.kernels.SCAN_FORMS) on the arguments
+    ``a`` of bucket_scan, through its C launcher: the wrapper launches only
+    the form it picks (scan_form).  Writes into ``res`` (the four outputs as
+    bucket_scan makes them), fresh ones by default, and returns them."""
+    import torch
+
+    from vdf_tpu_torch import _build
+    from vdf_tpu_torch.curves import kernels as CK
+
+    bf, table, keys, rows = a
+    (batch, m_pad), dev = keys.shape, keys.device
+    cols = m_pad // rows
+    if res is None:
+        res = (CK._identity_rows(bf, (batch, CK.NB), dev),
+               torch.full((batch, CK.NB), -1, dtype=torch.int32, device=dev),
+               torch.empty((batch, cols, 3, 8), dtype=torch.int32, device=dev),
+               torch.empty((batch, cols), dtype=torch.int32, device=dev))
+    if _build.load_kernels().lib.vdf_scan(
+            _build.FIELD_INDEX[bf], table.data_ptr(), keys.data_ptr(),
+            *(x.data_ptr() for x in res), m_pad, rows, cols, batch, CK.SCAN_FORMS.index(form),
+            torch.cuda.current_stream().cuda_stream):
+        raise SystemExit(f"scan: the {form} form's launch failed")
+    return res
+
+
+def _scan_forms(a, want, where: str, err: dict, repeats: int = 0) -> None:
+    """K4 in each of its forms on the arguments ``a`` == ``want`` (the plain
+    version's result), bit for bit; with ``repeats``, each form gives the same
+    bits that many launches over, into fresh outputs (a group's lanes race
+    only on the card)."""
+    import torch
+
+    from vdf_tpu_torch.curves import kernels as CK
+
+    for form in CK.SCAN_FORMS:
+        got = _scan_launch(a, form)
+        torch.cuda.synchronize()
+        _require_same("scan", f"{where} ({form} form)", got, want, err)
+        for _ in range(repeats):
+            if not all(torch.equal(x, y) for x, y in zip(_scan_launch(a, form), got)):
+                raise SystemExit(f"scan {where} ({form} form): two launches on the same inputs "
+                                 f"gave different outputs")
+
+
+def _scan_form_times(a, want, where: str, err: dict) -> dict:
+    """Each K4 form's device ms on the arguments ``a`` (mean of 5 launches
+    through the C launcher: at the commit's shape the wrapper's host time
+    exceeds the kernel's), its output held against ``want``; logs the form
+    the wrapper picks there."""
+    from vdf_tpu_torch.curves import kernels as CK
+
+    _, _, keys, rows = a
+    out = {"chosen": CK.scan_form(keys.shape[0] * (keys.shape[1] // rows), rows, keys.device)}
+    for form in CK.SCAN_FORMS:
+        res = _scan_launch(a, form)
+        out[form], got = _cuda_ms(_scan_launch, (a, form, res), reps=5)
+        _require_same("scan", f"{where} ({form} form, launcher)", got, want, err)
+    _log(f"timing: scan {where}, device ms through the launcher: thread form "
+         f"{out['thread']:.4f}, group form (8 threads a column) {out['group']:.4f}; the "
+         f"wrapper picks the {out['chosen']} form here")
+    return out
+
+
 # K5 at the shapes that stress its tiles: (batch rows, columns, share of columns
 # that hold a run's head; column 0 always does unless the share is 0).  A tile
 # is 128 columns up to 16,384 columns a row and 512 beyond.
@@ -569,7 +639,10 @@ def phase_commit_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
             want = getattr(CK, fn + "_plain")(*args[kname])
             torch.cuda.synchronize()
             _require_same(kname, f"on {curve_name} at n={check_n}", got, want, err)
-        _log(f"commit kernels: {curve_name} K3-K7 == plain at n={check_n}, K=2, bit for bit")
+            if kname == "scan":
+                _scan_forms(args[kname], want, f"on {curve_name} at n={check_n}", err)
+        _log(f"commit kernels: {curve_name} K3-K7 == plain at n={check_n}, K=2, bit for bit "
+             f"(K4 in each form)")
         _edge_checks(curve_name, CK.shift_gens(*args["shift_gens"]), device, err)
 
     for curve_name in COMMIT_CURVES:
@@ -585,8 +658,13 @@ def phase_commit_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
             _log(f"timing: {kname} {curve_name} n={n}: kernel {ms:.4f} ms, plain "
                  f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.6f} ms ({bound['bound_by']}); "
                  f"== plain, bit for bit")
+            extra = {}
+            if kname == "scan":
+                where = f"on {curve_name} at n={n}"
+                extra["forms"] = _scan_form_times(args[kname], want, where, err)
+                _scan_forms(args[kname], want, where, err, repeats=REPEATS)
             if curve_name == "pallas":
-                times[kname] = {"ms": ms, "plain_ms": plain_ms, **bound}
+                times[kname] = {"ms": ms, "plain_ms": plain_ms, **bound, **extra}
     return {k: {"max_abs_err": err[k], **times[k]} for k in COMMIT_KERNELS}
 
 
@@ -882,18 +960,22 @@ def phase_msm_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
             got, want = getattr(CK, fn)(*a), getattr(CK, fn + "_plain")(*a)
             torch.cuda.synchronize()
             _require_same(kname, f"on {curve_name} at n={check_n}, variable base", got, want, err)
-        # Blocks race only on the card: K5's and K6's many blocks a row must
-        # give the same bits however they interleave.
-        for kname in ("colscan", "bucket"):
-            fn = getattr(CK, COMMIT_KERNELS[kname][0])
-            first = fn(*args[kname])
+        # Blocks race only on the card: K5's and K6's many blocks a row, and
+        # the lanes of K4's and K9's groups, must give the same bits however
+        # they interleave.
+        for kname, a in (("colscan", args["colscan"]), ("bucket", args["bucket"]),
+                         ("horner", (bf, rows))):
+            fn = getattr(CK, COMMIT_KERNELS[kname][0] if kname in COMMIT_KERNELS else kname)
+            first = fn(*a)
             for _ in range(REPEATS):
-                if not torch.equal(fn(*args[kname]), first):
+                if not torch.equal(fn(*a), first):
                     raise SystemExit(f"{kname} on {curve_name} at n={check_n}, 22 rows: two "
                                      f"launches on the same inputs gave different outputs")
-        _log(f"msm kernels: {curve_name} K9 == plain at B=1 and 5; K3 (window rows), K4, K5, "
-             f"K6, K9 == plain at n={check_n} (22 rows), bit for bit; K5 and K6 the same bits "
-             f"{REPEATS} launches over")
+        _scan_forms(args["scan"], CK.bucket_scan_plain(*args["scan"]),
+                    f"on {curve_name} at n={check_n}, variable base", err, repeats=REPEATS)
+        _log(f"msm kernels: {curve_name} K9 == plain at B=1 and 5; K3 (window rows), K4 (each "
+             f"form), K5, K6, K9 == plain at n={check_n} (22 rows), bit for bit; K4 (each "
+             f"form), K5, K6 and K9 the same bits {REPEATS} launches over")
 
     base_aff, pts, scalars, _ = _msm_inputs("pallas", n, device)
     args, keys = _msm_stage_args("pallas", pts, scalars)
@@ -912,6 +994,10 @@ def phase_msm_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
         _require_same(kname, f"on pallas at n={n}, variable base", got, want, err)
         stages[kname] = {"ms": ms, "plain_ms": start.elapsed_time(end),
                          **_bound(kname, a, got, clock_hz)}
+        if kname == "scan":
+            where = f"on pallas at n={n}, variable base"
+            stages[kname]["forms"] = _scan_form_times(a, want, where, err)
+            _scan_forms(a, want, where, err, repeats=REPEATS)
         _log(f"timing: {kname} pallas variable base n={n}: kernel {ms:.4f} ms, plain "
              f"{stages[kname]['plain_ms']:.4f} ms, bound {stages[kname]['bound_ms']:.6f} ms "
              f"({stages[kname]['bound_by']}); == plain, bit for bit")
@@ -932,7 +1018,8 @@ def phase_msm_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
          f"{len(base_aff)} base points with the summed digits")
     del args, keys
     torch.cuda.empty_cache()
-    return {"horner": {"max_abs_err": err["horner"], **stages["horner"]}, "stages": stages}
+    return {"horner": {"max_abs_err": err["horner"], **stages["horner"]}, "stages": stages,
+            "scan_err": err["scan"]}
 
 
 def _collapsed(base_n: int, ints: list[int], q: int) -> list[int]:
@@ -1245,9 +1332,16 @@ def main() -> None:
                 st["max_abs_err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
                 "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
                 "library_ms": st["library_ms"], "launches_by_path": launches,
-                "timed_at": timed_at, **({"main_shape": st["main_shape"]}
-                                         if "main_shape" in st else {})}
+                "timed_at": timed_at,
+                **{k: st[k] for k in ("main_shape", "msm_shape", "forms") if k in st}}
 
+    # K4 at the MSM's shape beside its commit-shape entry; its error covers both.
+    msm_scan = msm_kernel_stats["stages"]["scan"]
+    commit_kernel_stats["scan"]["max_abs_err"] = max(commit_kernel_stats["scan"]["max_abs_err"],
+                                                     msm_kernel_stats["scan_err"])
+    commit_kernel_stats["scan"]["msm_shape"] = {
+        "n": MSM_N, "batch": 22, **{k: msm_scan[k] for k in (  # a batch row a window
+            "ms", "plain_ms", "bound_ms", "bound_by", "forms")}}
     msm_src = "vdf_tpu_torch/csrc/msm_kernels.cuh"
     kernels = [
         entry(name, "vdf_tpu_torch/csrc/minroot_kernels.cuh", replaces[name],

@@ -65,6 +65,7 @@ def test_load_kernels_raises_without_nvcc(monkeypatch, tmp_path):
 def test_constants_header_matches_params():
     text = _build.constants_header()
     assert int(re.search(r"VDF_N_DIGITS (\d+)", text).group(1)) == 64
+    assert int(re.search(r"VDF_B3 (\d+)u", text).group(1)) == 15  # 3b, for the small multiply
     digits = re.search(r"VDF_DIGITS_INIT \{(.*)\}", text).group(1)
     rows = re.findall(r"\{([^{}]*)\}", digits)
     for name, row in zip(("Fp", "Fq"), rows):
@@ -374,3 +375,46 @@ def test_msm_on_card_matches_native(cuda, curve_name):
     assert CK.LAUNCHES["horner"] == 1 and CK.LAUNCHES["scan"] == 1
     got = c.to_affine_ints(type(pt)(*(v[None] for v in pt)))[0]
     assert got == msm_native_affine(curve_name, pts, vals)
+
+
+@pytest.mark.gpu
+def test_scan_and_horner_launchers_refuse_a_bad_form(cuda):
+    """vdf_scan takes form 0 (a thread a column) or form 1 (a group of 8
+    threads a column, columns of at most 64 rows), vdf_horner field 0 or 1:
+    anything else is refused with cudaErrorInvalidValue before a launch, and
+    every good call launches and equals the plain version."""
+    invalid_value = 1  # cudaErrorInvalidValue
+    lib = _build.load_kernels().lib
+    _, table, _, keys = commit_inputs("pallas", 6, 1, 5, device=cuda)
+    k, m_pad = keys.shape
+    window_sums = table[: CK.WINDOWS][None].contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def scan(form, rows=5, keys=keys):
+        m_pad = keys.shape[1]
+        cols = m_pad // rows
+        out = (CK._identity_rows("Fp", (k, CK.NB), cuda),
+               torch.full((k, CK.NB), -1, dtype=torch.int32, device=cuda),
+               torch.empty((k, cols, 3, 8), dtype=torch.int32, device=cuda),
+               torch.empty((k, cols), dtype=torch.int32, device=cuda))
+        err = lib.vdf_scan(0, table.data_ptr(), keys.data_ptr(), *(a.data_ptr() for a in out),
+                           m_pad, rows, cols, k, form, stream)
+        return err, out
+
+    def horner(field):
+        out = torch.empty((1, 3, 8), dtype=torch.int32, device=cuda)
+        return lib.vdf_horner(field, window_sums.data_ptr(), out.data_ptr(), 1, stream), out
+
+    tall = torch.sort(torch.cat([keys] * 13, dim=1), dim=1).values  # 65 rows a column
+    for form, rows, a in ((2, 5, keys), (-1, 5, keys), (8, 5, keys), (1, 65, tall)):
+        assert scan(form, rows, a)[0] == invalid_value, (form, rows)
+    for field in (-1, 2):
+        assert horner(field)[0] == invalid_value, field
+    for form, rows, a in ((0, 5, keys), (1, 5, keys), (0, 65, tall)):
+        err, out = scan(form, rows, a)
+        torch.cuda.synchronize()
+        want = CK.bucket_scan_plain("Fp", table, a, rows)
+        assert err == 0 and all(torch.equal(x, y) for x, y in zip(out, want)), (form, rows)
+    err, out = horner(0)
+    torch.cuda.synchronize()
+    assert err == 0 and torch.equal(out, CK.horner_plain("Fp", window_sums))

@@ -2,13 +2,14 @@
 
 With the CUDA qualifiers defined away and ``threadIdx``/``blockIdx``
 emulated, g++ compiles the very source nvcc builds for the card
-(``csrc/msm_kernels.cuh``, ``csrc/curve.cuh``).  K3, K4, K7 and K9 use no
-CUDA intrinsic: each grid runs thread by thread.  K5 and K6 synchronise
-inside a block, so the source gives what a thread does between two barriers
-as ``__device__`` functions on explicit buffers; the shim below calls them
-as ``csrc/msm.cu``'s kernels do, pass after pass, level after level, thread
-after thread (the barriers, the vote and the copies through shared memory
-are the card's).  Every output must equal the plain version
+(``csrc/msm_kernels.cuh``, ``csrc/curve.cuh``).  K3, K7 and K4's thread
+form use no CUDA intrinsic: each grid runs thread by thread.  K5 and K6
+synchronise inside a block, and K4's group form and K9 inside a group of 8
+threads, so the source gives what a thread does between two barriers as
+``__device__`` functions on explicit buffers; the shim below calls them as
+``csrc/msm.cu``'s kernels do, pass after pass, level after level, thread
+(or lane) after thread (the barriers, the vote and the copies through shared
+memory are the card's).  Every output must equal the plain version
 (curves/kernels.py) bit for bit, also at the shapes that stress K5's tiles
 and K6's inputs; and the plain K5 and K6 equal oracles that share nothing of
 their schedule.  Launch, stream, the races between blocks and the sm_90a
@@ -18,6 +19,7 @@ chip_smoke.py).
 
 import ctypes
 import functools
+import itertools
 import random
 import shutil
 import subprocess
@@ -36,6 +38,9 @@ from vdf_tpu_torch.curves import (
 )
 from vdf_tpu_torch.curves import kernels as K
 from vdf_tpu_torch.curves.bucket_msm import layout
+from vdf_tpu_torch.curves.point import add16, double16, point_from_digits, point_to_digits
+from vdf_tpu_torch.fields import FIELDS
+from vdf_tpu_torch.fields.params import int_to_limbs
 
 # The plain versions are many small tensor ops: one intra-op thread runs
 # them fastest, and test workers sharing the cores do not oversubscribe
@@ -78,8 +83,89 @@ extern "C" void host_canon_digits(int f, const uint32_t* s, int64_t* keys, int64
   });
 }
 
-extern "C" void host_horner(int f, const uint32_t* sums, uint32_t* out, int64_t batch) {
-  grid(batch, PBLOCK, [&] { (f ? horner_kernel<1> : horner_kernel<0>)(sums, out, batch); });
+// The lanes of a group, one after another at each step (the card runs them
+// at once, GroupLanes in msm_kernels.cuh); `reverse` runs them from the last
+// down, which must give the same bits: no lane reads what another lane
+// writes in the same step.
+struct SerialLanes {
+  bool reverse = false;
+  U4 pre_[GROUP];
+  template <class F>
+  void each(F f) {
+    for (int i = 0; i < GROUP; ++i) f(reverse ? GROUP - 1 - i : i);
+  }
+  void sync() {}
+  U4& pre(int lane) { return pre_[lane]; }
+  template <int K>
+  void add(uint32_t* buf) {
+    for (int i = 0; i < GROUP_STEPS; ++i)
+      each([&](int lane) { group_step<K>(buf, group_add_step(i), lane); });
+  }
+  template <int K>
+  void dbl(uint32_t* buf) {
+    for (int i = 0; i < GROUP_STEPS; ++i)
+      each([&](int lane) { group_step<K>(buf, group_dbl_step(i), lane); });
+  }
+};
+
+// One add (op 0) or doubling (op 1) on the buffer of a group whose unused
+// slots hold a pattern nobody may read (grouped), or on one thread
+// (point_add, point_double); points as (3, 8) words.
+template <int K>
+static void point_op_host(const uint32_t* p, const uint32_t* q, uint32_t* r, int op, int grouped,
+                          int reverse) {
+  if (grouped) {
+    std::vector<U4> b(GROUP_WORDS / 4);
+    uint32_t* buf = reinterpret_cast<uint32_t*>(b.data());
+    for (int j = 0; j < GROUP_WORDS; ++j) buf[j] = 0xA5A5A5A5u ^ (uint32_t)j;
+    for (int j = 0; j < NL; ++j) buf[GS_ZERO * NL + j] = 0;
+    for (int j = 0; j < PT; ++j) buf[GS_P * NL + j] = p[j];
+    if (op == 0)
+      for (int j = 0; j < PT; ++j) buf[GS_Q * NL + j] = q[j];
+    SerialLanes L;
+    L.reverse = reverse != 0;
+    if (op == 0) L.add<K>(buf); else L.dbl<K>(buf);
+    for (int j = 0; j < PT; ++j) r[j] = buf[GS_P * NL + j];
+    return;
+  }
+  Pt a, b;
+  for (int j = 0; j < NL; ++j) {
+    a.x[j] = p[j], a.y[j] = p[NL + j], a.z[j] = p[2 * NL + j];
+    b.x[j] = q[j], b.y[j] = q[NL + j], b.z[j] = q[2 * NL + j];
+  }
+  if (op == 0) point_add<K>(a, a, b); else point_double<K>(a, a);
+  for (int j = 0; j < NL; ++j) r[j] = a.x[j], r[NL + j] = a.y[j], r[2 * NL + j] = a.z[j];
+}
+
+extern "C" void host_point_op(int f, const uint32_t* p, const uint32_t* q, uint32_t* r, int op,
+                              int grouped, int reverse) {
+  (f ? point_op_host<1> : point_op_host<0>)(p, q, r, op, grouped, reverse);
+}
+
+// r = k a by the small-constant multiply (small != 0) or by a Montgomery
+// product with k R mod p (small == 0; k must be 3b: curve_b3).
+extern "C" void host_mul_small(int f, const uint32_t* a, uint32_t k, uint32_t* r, int small) {
+  uint32_t b3[NL];
+  for (int j = 0; j < NL; ++j) b3[j] = f ? curve_b3<1>(j) : curve_b3<0>(j);
+  if (small) {
+    (f ? mul_small<1> : mul_small<0>)(r, a, k);
+  } else {
+    (f ? mont_mul<1> : mont_mul<0>)(r, a, b3);
+  }
+}
+
+// K9 as vdf_horner launches it: a group a batch row, its lanes one after
+// another.
+extern "C" void host_horner(int f, const uint32_t* sums, uint32_t* out, int64_t batch,
+                            int reverse) {
+  for (int64_t row = 0; row < batch; ++row) {
+    std::vector<U4> buf(GROUP_WORDS / 4), stage(HORNER_PIECES);
+    uint32_t* b = reinterpret_cast<uint32_t*>(buf.data());
+    SerialLanes L;
+    L.reverse = reverse != 0;
+    if (f) horner_walk<1>(L, b, stage.data(), sums, out, row);
+    else horner_walk<0>(L, b, stage.data(), sums, out, row);
+  }
 }
 
 extern "C" void host_canon_mont(int f, const uint32_t* in, uint32_t* out, int64_t count) {
@@ -90,13 +176,35 @@ extern "C" void host_shift_gens(int f, const uint32_t* gens, uint32_t* table, in
   grid(n, PBLOCK, [&] { (f ? shift_gens_kernel<1> : shift_gens_kernel<0>)(gens, table, n); });
 }
 
+template <int K>
+static void scan_host(const uint32_t* table, const int64_t* keys, uint32_t* tails,
+                      int32_t* tail_col, uint32_t* sums, int32_t* flags, int64_t rows,
+                      int64_t cols, int64_t batch, int form, int reverse) {
+  const int64_t columns = batch * cols;
+  if (form == 0) {
+    grid(columns, PBLOCK, [&] {
+      scan_kernel<K>(table, keys, tails, tail_col, sums, flags, rows, cols, batch);
+    });
+    return;
+  }
+  std::vector<U4> buf(GROUP_WORDS / 4);
+  std::vector<int64_t> gkeys(rows + 2);
+  for (int64_t g = 0; g < columns; ++g) {
+    SerialLanes L;
+    L.reverse = reverse != 0;
+    scan_group_walk<K>(L, reinterpret_cast<uint32_t*>(buf.data()), gkeys.data(), table, keys,
+                       tails, tail_col, sums, flags, rows, cols, g);
+  }
+}
+
+// K4 as vdf_scan in msm.cu launches it: form 0, the thread form (thread
+// after thread); form 1, the group form (a group a column, its lanes one
+// after another).
 extern "C" void host_scan(int f, const uint32_t* table, const int64_t* keys, uint32_t* tails,
-                          int32_t* tail_col, uint32_t* sums, int32_t* flags, int64_t m_pad,
-                          int64_t rows, int64_t cols, int64_t batch) {
-  grid(batch * cols, PBLOCK, [&] {
-    (f ? scan_kernel<1> : scan_kernel<0>)(table, keys, tails, tail_col, sums, flags, m_pad,
-                                          rows, cols, batch);
-  });
+                          int32_t* tail_col, uint32_t* sums, int32_t* flags, int64_t rows,
+                          int64_t cols, int64_t batch, int form, int reverse) {
+  (f ? scan_host<1> : scan_host<0>)(table, keys, tails, tail_col, sums, flags, rows, cols,
+                                    batch, form, reverse);
 }
 
 // K5 as vdf_colscan in msm.cu launches it: what each thread does in each
@@ -237,12 +345,30 @@ class HostKernels:
                                    ctypes.c_int64(m_pad), ctypes.c_int(int(window_rows)))
         return torch.from_numpy(keys)
 
-    def horner(self, field, sums):
+    def horner(self, field, sums, reverse=False):
         v = np.ascontiguousarray(sums.numpy())
         out = np.empty((v.shape[0], 3, 8), dtype=np.int32)
         self.lib.host_horner(_build.FIELD_INDEX[field], self._p(v), self._p(out),
-                             ctypes.c_int64(v.shape[0]))
+                             ctypes.c_int64(v.shape[0]), ctypes.c_int(int(reverse)))
         return torch.from_numpy(out)
+
+    def point_op(self, field, p, q, op, grouped, reverse=False):
+        """One add (op 0: p + q) or doubling (op 1: 2 p) of (3, 8) int32
+        points, on a group's lanes (in order, or reversed) or on one
+        thread."""
+        a, b = np.ascontiguousarray(p.numpy()), np.ascontiguousarray(q.numpy())
+        r = np.empty((3, 8), dtype=np.int32)
+        self.lib.host_point_op(_build.FIELD_INDEX[field], self._p(a), self._p(b), self._p(r),
+                               ctypes.c_int(op), ctypes.c_int(int(grouped)),
+                               ctypes.c_int(int(reverse)))
+        return torch.from_numpy(r)
+
+    def mul_small(self, field, a, k, small=True):
+        v = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
+        r = np.empty(8, dtype=np.uint32)
+        self.lib.host_mul_small(_build.FIELD_INDEX[field], self._p(v), ctypes.c_uint32(k),
+                                self._p(r), ctypes.c_int(int(small)))
+        return r
 
     def canon_mont(self, field, values):
         v = np.ascontiguousarray(values.numpy())
@@ -258,7 +384,8 @@ class HostKernels:
                                  ctypes.c_int64(g.shape[0]))
         return torch.from_numpy(table)
 
-    def bucket_scan(self, field, table, keys, rows):
+    def bucket_scan(self, field, table, keys, rows, form="thread", reverse=False):
+        """K4 in one of its forms (K.SCAN_FORMS)."""
         t, kk = np.ascontiguousarray(table.numpy()), np.ascontiguousarray(keys.numpy())
         k, m_pad = kk.shape
         cols = m_pad // rows
@@ -268,8 +395,9 @@ class HostKernels:
         flags = np.empty((k, cols), dtype=np.int32)
         self.lib.host_scan(_build.FIELD_INDEX[field], self._p(t), self._p(kk),
                            self._p(tails), self._p(tail_col), self._p(sums), self._p(flags),
-                           ctypes.c_int64(m_pad), ctypes.c_int64(rows), ctypes.c_int64(cols),
-                           ctypes.c_int64(k))
+                           ctypes.c_int64(rows), ctypes.c_int64(cols), ctypes.c_int64(k),
+                           ctypes.c_int(K.SCAN_FORMS.index(form)),
+                           ctypes.c_int(int(reverse)))
         return tuple(map(torch.from_numpy, (tails, tail_col, sums, flags)))
 
     def column_carries(self, field, sums, flags, per_thread=None):
@@ -389,7 +517,9 @@ def test_msm_kernel_bodies_match_plain(host, curve_name):
     sums = table.reshape(K.WINDOWS, 3, 3, 8).transpose(0, 1).contiguous()  # (3, W, 3, 8)
     sums[1, 4] = K._identity_rows(bf, (), "cpu")
     sums[2, 0, 0] = -1  # x = 2^256 - 1: reduced on load
-    assert torch.equal(host.horner(bf, sums), K.horner_plain(bf, sums))
+    want = K.horner_plain(bf, sums)
+    assert torch.equal(host.horner(bf, sums), want)
+    assert torch.equal(host.horner(bf, sums, reverse=True), want)  # lanes in any order
 
 
 # ---------------------------------------------------------------------
@@ -534,3 +664,125 @@ def test_bucket_sums_plain_matches_weighted_sum(curve_name, case):
     assert got == [ic.to_affine(total)]
     if case == "identity_tails":
         assert got != [None]  # the carries alone make the sum
+
+
+# ---------------------------------------------------------------------
+# The group law on a group of 8 lanes (curve.cuh), the small-constant
+# multiply (field.cuh), and K4's two forms
+# ---------------------------------------------------------------------
+
+
+def _enc_point(curve_name: str, pt) -> torch.Tensor:
+    """Projective int triple -> (3, 8) Montgomery limbs."""
+    f = get_curve(curve_name).field
+    return torch.stack([f.encode([v], device="cpu")[0] for v in pt]).contiguous()
+
+
+def _dec_point(curve_name: str, t: torch.Tensor) -> tuple:
+    f = get_curve(curve_name).field
+    return tuple(f.decode(t[j : j + 1])[0] for j in range(3))
+
+
+# name -> (op: 0 add, 1 doubling; how the operands are made)
+GROUP_LAW_CASES = {
+    "add_random": (0, "random"),
+    "add_identity_left": (0, "identity_left"),
+    "add_identity_right": (0, "identity_right"),
+    "add_p_plus_p": (0, "equal"),
+    "add_p_plus_minus_p": (0, "negated"),
+    "double_random": (1, "random"),
+    "double_identity": (1, "identity_left"),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUP_LAW_CASES))
+@pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
+def test_group_law_steps_match_one_thread_and_int_curve(host, curve_name, case):
+    """An add or doubling as the four steps of a group of 8 lanes, run
+    lane after lane (in order and reversed: no task reads what another
+    task of the same step writes) == the one-thread body (point_add /
+    point_double) == the plain add16 / double16, limb for limb, and ==
+    IntCurve.  Pasta's groups have prime order: no point of order 2."""
+    bf = CURVES[curve_name].base_field
+    ic = get_int_curve(curve_name)
+    op, how = GROUP_LAW_CASES[case]
+    p, q = _some_points(curve_name, 2, seed=len(case))
+    ident = K._identity_rows(bf, (), "cpu")
+    if how == "identity_left":
+        p = ident
+    elif how == "identity_right":
+        q = ident
+    elif how == "equal":
+        q = p.clone()
+    elif how == "negated":
+        q = _enc_point(curve_name, ic.neg(_dec_point(curve_name, p)))
+    got = host.point_op(bf, p, q, op, grouped=False)
+    for reverse in (False, True):
+        assert torch.equal(host.point_op(bf, p, q, op, True, reverse), got), reverse
+    p16, q16 = point_to_digits(p[None]), point_to_digits(q[None])
+    plain = add16(bf, p16, q16) if op == 0 else double16(bf, p16)
+    assert torch.equal(point_from_digits(plain)[0], got)
+    P, Q = _dec_point(curve_name, p), _dec_point(curve_name, q)
+    want = ic.add(P, Q) if op == 0 else ic.double(P)
+    assert _dec_point(curve_name, got) == want
+    if how == "negated" or (op == 1 and how == "identity_left"):
+        assert ic.to_affine(want) is None
+
+
+def _mul_small_values(name: str) -> list[int]:
+    p = FIELDS[name].modulus
+    rng = random.Random(17)
+    return [0, 1, p - 1, 1 << 254, *(rng.randrange(p) for _ in range(20))]
+
+
+@pytest.mark.parametrize("k", [15, 2, 3, 8, 45])
+@pytest.mark.parametrize("name", ["Fp", "Fq"])
+def test_mul_small_matches_mont_mul_and_ints(host, name, k):
+    """r = k a mod p by the small-constant multiply == Python ints at 0, 1,
+    p - 1, 2^254 and random values; for k = 3b = 15 also == the Montgomery
+    product by curve_b3 it replaces."""
+    p = FIELDS[name].modulus
+    for a in _mul_small_values(name):
+        limbs = int_to_limbs(a).astype(np.uint32)
+        got = host.mul_small(name, limbs, k)
+        assert int.from_bytes(got.astype("<u4").tobytes(), "little") == k * a % p
+        if k == 15:
+            assert (host.mul_small(name, limbs, k, small=False) == got).all()
+
+
+def scan_case(curve_name: str, shape: str):
+    """(table, sorted keys, rows): the commit test's shape (K = 2, n = 6,
+    rows = 5, a ragged last column), or one in which a run of equal digits
+    crosses three columns (K = 1, n = 16 equal scalars, rows = 4)."""
+    params = CURVES[curve_name]
+    bf, sf = params.base_field, params.scalar_field
+    n, k, rows = (6, 2, 5) if shape == "commit" else (16, 1, 4)
+    pts = hash_to_curve_ints(curve_name, n, domain=b"vdf_tpu/t")
+    gens = stack_point(get_curve(curve_name).from_affine_ints(pts, device="cpu")).contiguous()
+    table = K.shift_gens_plain(bf, gens)
+    s = _scalars(curve_name, k, n, seed=3)
+    if shape == "long_run":
+        s[:] = s[0, 4]
+    _, m_pad = layout(n, rows)
+    keys = torch.sort(K.canon_digits_plain(sf, s, m_pad), dim=-1).values
+    return table, keys, rows
+
+
+@pytest.mark.parametrize("shape", ["commit", "long_run"])
+@pytest.mark.parametrize("form, reverse", [("thread", False), ("group", False), ("group", True)],
+                         ids=["thread", "group", "group_reversed"])
+@pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
+def test_scan_bodies_match_plain_in_both_forms(host, curve_name, form, reverse, shape):
+    """K4 in each form (one thread a column; a group of 8 lanes a column on
+    the group law, lanes in order and reversed) == the plain version, bit
+    for bit."""
+    bf = CURVES[curve_name].base_field
+    table, keys, rows = scan_case(curve_name, shape)
+    want = K.bucket_scan_plain(bf, table, keys, rows)
+    got = host.bucket_scan(bf, table, keys, rows, form=form, reverse=reverse)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if shape == "long_run":  # some digit's run covers parts of three columns
+        d = (keys[0] >> 32).tolist()
+        runs = [len(list(g)) for _, g in itertools.groupby(d)]
+        assert max(runs) >= rows + 2 and (want[1] >= 0).any()

@@ -1,12 +1,19 @@
 #!/usr/bin/env python3
-"""Time the choices behind K5 (column carries), K6 (bucket sums) and the
-column height ROWS on one GPU.
+"""Time the choices behind K4 (column scan), K5 (column carries), K6 (bucket
+sums) and the column height ROWS on one GPU.
 
     python3 tools/msm_stage_sweep.py
 
 At the commit's shape (Pallas, n = 2^14, one batch row) and at the MSM's
 (n = 2^20, 22 batch rows), on chip_smoke.py's inputs:
 
+  * K4 through its C launcher (the wrapper's host time would hide the
+    kernel's at small grids) in its thread form and in its group form (8
+    threads a column), at grids from 1,024 to 1.05M columns: commits at n =
+    2^10, 2^12, 2^13 and 2^14 (K = 1 and 2), and the first 1, 2, 4, 8, 16
+    and 22 window rows of the MSM, every form equal bit for bit to the
+    wrapper's output.  The wrapper takes the group form below
+    ``SCAN_GROUP_BELOW`` columns an SM (``scan_form``);
   * K5 with L = 1, 2, 4, 8, 16 columns a thread (the wrapper's own choice is
     ``curves.kernels.carry_columns``), the carries equal bit for bit in
     affine terms to the wrapper's (the projective bits follow L);
@@ -62,6 +69,7 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke as S
     from vdf_tpu_torch.curves import CURVES, Point, get_curve
+    from vdf_tpu_torch.curves.bucket_msm import ROWS
     from vdf_tpu_torch.curves import kernels as CK
 
     smi = subprocess.run(
@@ -86,6 +94,30 @@ def main() -> None:
     table = CK.shift_gens(bf, gens)
     _, pts, scalars, _ = S._msm_inputs(curve_name, S.MSM_N, device)
     msm_args, _ = S._msm_stage_args(curve_name, pts, scalars)
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    k4_grids = []
+    for bits in (10, 12, 13, 14):
+        for k in ((1, 2) if bits == 14 else (1,)):
+            g, _, _, _, keys = S._commit_inputs(curve_name, 1 << bits, k, device)
+            k4_grids.append((f"commit n=2^{bits} K={k}", CK.shift_gens(bf, g), keys))
+    a = msm_args["scan"]
+    for rows in (1, 2, 4, 8, 16, CK.WINDOWS):
+        k4_grids.append((f"msm n=2^20, {rows} window rows", a[1], a[2][:rows]))
+    for shape, table_or_points, keys in k4_grids:
+        batch, m_pad = keys.shape
+        cols = m_pad // ROWS
+        want = CK.bucket_scan(bf, table_or_points, keys, ROWS)
+        chosen = CK.scan_form(batch * cols, ROWS, device)
+        scan_args = (bf, table_or_points, keys, ROWS)
+        for form in CK.SCAN_FORMS:
+            out = S._scan_launch(scan_args, form)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(out, want)):
+                raise SystemExit(f"K4 ({form} form) disagrees at {shape}")
+            emit(kernel="K4", shape=shape, columns=batch * cols, columns_an_sm=batch * cols / sms,
+                 form=form, own_choice=form == chosen,
+                 ms=_median_ms(lambda form=form, out=out: S._scan_launch(scan_args, form, out)))
 
     for shape, args in (("commit n=2^14", commit_args), ("msm n=2^20", msm_args)):
         a = args["colscan"]

@@ -1,16 +1,22 @@
 """vdf_tpu_torch: the MinRoot VDF framework on PyTorch and CUDA (H100).
 
 The port of ``vdf_tpu`` (JAX on a TPU), which stays beside it as the
-reference.  This package imports neither jax nor vdf_tpu.  It holds the
-delay side of the main path (MinRoot eval and verify over the Pasta
-fields, fused eval and inverse kernels) and the fixed-base Pedersen
-commit of the proving side (``nova.commitment_key``: curves, the
-pre-shifted generator table and the bucket pipeline), each kernel
-written by hand in CUDA C++ for sm_90a (csrc/), built with nvcc at first
-use.
+reference.  This package imports neither jax nor vdf_tpu.  It holds:
 
-Top-level surface mirrors the reference's ``lib.rs`` exports
-(src/lib.rs:1-4) as far as this slice reaches.
+  * the delay side: MinRoot eval and verify over the Pasta fields, fused
+    eval and inverse kernels (``minroot``, ``fields``);
+  * the curves and their bucket pipeline: the fixed-base Pedersen commit
+    (``nova.commitment_key``: the pre-shifted generator table, sort keys,
+    column scan, carries, bucket sums) and the variable-base ``msm`` that
+    reuses the pipeline a window a batch row (``curves``);
+  * the single-curve Nova folding engine: the Poseidon transcript
+    (``poseidon``), R1CS constraint systems and the MinRoot circuit
+    (``r1cs``, ``nova.circuit``), folding and the recursive proof
+    (``nova.nifs``, ``nova.snark``).
+
+Every kernel is written by hand in CUDA C++ for sm_90a (csrc/) and built
+with nvcc at first use.  Top-level surface mirrors the reference's
+``lib.rs`` exports (src/lib.rs:1-4) as far as the port reaches.
 """
 
 from . import curves, fields, minroot, nova, poseidon, r1cs  # noqa: F401

@@ -65,9 +65,9 @@ def _c_array(v: int) -> str:
 
 
 def constants_header() -> str:
-    """vdf_consts.h: per-field limb tables (modulus, 2p, Montgomery one,
-    3b = 15 in Montgomery form, R^2 mod p) and inv_alpha window digits, in
-    FIELD_INDEX order.  The kernels read them as compile-time constants."""
+    """vdf_consts.h: 3b = 15 as an integer, per-field limb tables (modulus,
+    2p, Montgomery one, 3b in Montgomery form, R^2 mod p) and inv_alpha
+    window digits, in FIELD_INDEX order.  The kernels read them as compile-time constants."""
     names = sorted(FIELD_INDEX, key=FIELD_INDEX.get)
     params = [FIELDS[name] for name in names]
     # csrc/field.cuh's reduction is written for moduli of the shape
@@ -92,6 +92,7 @@ def constants_header() -> str:
         "// Generated by vdf_tpu_torch/_build.py from fields/params.py.",
         "#pragma once",
         f"#define VDF_N_DIGITS {n_digits.pop()}",
+        f"#define VDF_B3 {B3}u  // 3b, the curves' constant times three",
         *(f"#define {macro} {{" + ", ".join(map(_c_array, vals)) + "}"
           for macro, vals in tables.items()),
         "#define VDF_DIGITS_INIT {" + ", ".join(digits) + "}",
@@ -122,7 +123,7 @@ LAUNCHERS = {
     "vdf_canon_digits": [_I, _P, _P, _L, _L, _L, _I, _P],
     "vdf_canon_mont": [_I, _P, _P, _L, _P],
     "vdf_shift_gens": [_I, _P, _P, _L, _P],
-    "vdf_scan": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P],
+    "vdf_scan": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _P],
     "vdf_colscan": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P],
     "vdf_bucket": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P],
     "vdf_horner": [_I, _P, _P, _L, _P],

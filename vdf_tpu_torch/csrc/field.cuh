@@ -231,6 +231,48 @@ __device__ __forceinline__ void sub_mod(uint32_t r[NL], const uint32_t a[NL],
   r[NL - 1] = addc(r[NL - 1], modulus<K>(NL - 1) & mask);
 }
 
+// r = -a mod p where neg, else a, for canonical a; one code path either way.
+template <int K>
+__device__ __forceinline__ void cond_neg_mod(uint32_t r[NL], const uint32_t a[NL], bool neg) {
+  const uint32_t zero[NL] = {0, 0, 0, 0, 0, 0, 0, 0};
+  uint32_t n[NL];
+  sub_mod<K>(n, zero, a);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) r[j] = neg ? n[j] : a[j];
+}
+
+// r = k a mod p for canonical a and a small k < 64 (the curve's 3b = 15, and
+// 2, 3, 8, 45 in the group law): the same residue as a Montgomery product by
+// k R mod p, so the same limbs, for 16 multiplies where that takes 88.
+// v = k a < 64 p < 2^261 has nine limbs; q = v >> 254 is floor(v / p) or
+// one more (p = 2^254 + c with c < 2^126), so v - max(q - 1, 0) p lies in
+// [0, 2p) and fits in 256 bits: the low limbs of v and of that multiple of p
+// give it, and one conditional subtraction ends it.  r may alias a.
+template <int K>
+__device__ __forceinline__ void mul_small(uint32_t r[NL], const uint32_t a[NL], uint32_t k) {
+  uint32_t v[NL], mp[NL], carry = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const uint64_t t = (uint64_t)a[j] * k + carry;
+    v[j] = lo32(t);
+    carry = hi32(t);
+  }
+  const uint32_t q = (carry << 2) | (v[NL - 1] >> 30);
+  const uint32_t m = q ? q - 1 : 0;
+  carry = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const uint64_t t = (uint64_t)modulus<K>(j) * m + carry;
+    mp[j] = lo32(t);
+    carry = hi32(t);
+  }
+  r[0] = sub_cc(v[0], mp[0]);
+#pragma unroll
+  for (int j = 1; j < NL - 1; ++j) r[j] = subc_cc(v[j], mp[j]);
+  r[NL - 1] = subc(v[NL - 1], mp[NL - 1]);
+  cond_sub_p<K>(r);
+}
+
 // acc[2k], acc[2k + 1] += a[2k] b for k < n, one carry chain through the n
 // wide multiply-adds (their 64-bit targets lie side by side, so nothing
 // else is added); the carry out goes to acc[2n] where `top` says that limb

@@ -57,16 +57,28 @@ extern "C" int vdf_shift_gens(int field, const void* gens, void* table, int64_t 
   return (int)cudaGetLastError();
 }
 
+// K4 in one of its two forms (msm_kernels.cuh): form 0, one thread a column,
+// or form 1, one group of GROUP threads a column (rows up to SCAN_MAX_ROWS).
 extern "C" int vdf_scan(int field, const void* table, const void* keys, void* tails,
                         void* tail_col, void* col_sums, void* col_flags, int64_t m_pad,
-                        int64_t rows, int64_t cols, int64_t batch, void* stream) {
-  if (bad_field(field) || rows <= 0 || cols <= 0 || m_pad != rows * cols)
+                        int64_t rows, int64_t cols, int64_t batch, int form, void* stream) {
+  if (bad_field(field) || rows <= 0 || cols <= 0 || m_pad != rows * cols ||
+      !(form == 0 || (form == 1 && rows <= vdf::SCAN_MAX_ROWS)))
     return (int)cudaErrorInvalidValue;
   if (batch <= 0) return (int)cudaSuccess;
-  auto kernel = field == 0 ? vdf::scan_kernel<0> : vdf::scan_kernel<1>;
-  kernel<<<grid_of(batch * cols, vdf::PBLOCK), vdf::PBLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)table, (const int64_t*)keys, (uint32_t*)tails, (int32_t*)tail_col,
-      (uint32_t*)col_sums, (int32_t*)col_flags, m_pad, rows, cols, batch);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (form == 0) {
+    auto kernel = field == 0 ? vdf::scan_kernel<0> : vdf::scan_kernel<1>;
+    kernel<<<grid_of(batch * cols, vdf::PBLOCK), vdf::PBLOCK, 0, s>>>(
+        (const uint32_t*)table, (const int64_t*)keys, (uint32_t*)tails, (int32_t*)tail_col,
+        (uint32_t*)col_sums, (int32_t*)col_flags, rows, cols, batch);
+  } else {
+    auto kernel = field == 0 ? vdf::scan_group_kernel<0> : vdf::scan_group_kernel<1>;
+    kernel<<<grid_of(batch * cols, vdf::SCAN_GROUPS), vdf::PBLOCK,
+             (size_t)vdf::scan_group_shared_bytes(rows), s>>>(
+        (const uint32_t*)table, (const int64_t*)keys, (uint32_t*)tails, (int32_t*)tail_col,
+        (uint32_t*)col_sums, (int32_t*)col_flags, rows, cols, batch);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -133,13 +145,14 @@ extern "C" int vdf_bucket(int field, const void* tails, const void* tail_col,
   return (int)cudaGetLastError();
 }
 
-// K9: one thread a batch row of W window sums.
-extern "C" int vdf_horner(int field, const void* sums, void* out, int64_t batch,
-                          void* stream) {
+// K9: one group of GROUP threads a batch row of W window sums, HORNER_GROUPS
+// groups a block.
+extern "C" int vdf_horner(int field, const void* sums, void* out, int64_t batch, void* stream) {
   if (bad_field(field)) return (int)cudaErrorInvalidValue;
   if (batch <= 0) return (int)cudaSuccess;
+  constexpr int block = vdf::HORNER_GROUPS * vdf::GROUP;
   auto kernel = field == 0 ? vdf::horner_kernel<0> : vdf::horner_kernel<1>;
-  kernel<<<grid_of(batch, vdf::PBLOCK), vdf::PBLOCK, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid_of(batch, vdf::HORNER_GROUPS), block, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)sums, (uint32_t*)out, batch);
   return (int)cudaGetLastError();
 }

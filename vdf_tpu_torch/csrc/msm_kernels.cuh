@@ -21,18 +21,21 @@
 //                             canonical integers into Montgomery form (its
 //                             domain mode).  One thread a value.
 //   --  torch.sort of the keys (the JAX package sorts in XLA too).
-//   K4  scan_kernel           the sorted items of a batch row are cut into
-//                             `cols` columns of `rows` consecutive
-//                             positions; one thread walks its column,
+//   K4  scan_kernel,          the sorted items of a batch row are cut into
+//       scan_group_kernel     `cols` columns of `rows` consecutive
+//                             positions; each column is walked down,
 //                             accumulating the run of equal digits (reset at
-//                             each run head).  Each digit's run has one
-//                             tail, where the thread writes its sum straight
-//                             to tails[digit], with the column index beside
-//                             it when the run's head lies in an earlier
-//                             column.  It also writes the column's last
-//                             partial run sum and whether it holds a head
-//                             (replaces _scan_kernel; the TPU wrote every
-//                             prefix and compacted the tails afterwards).
+//                             each run head), by one thread (grids that fill
+//                             the card) or by a group of 8 threads on the
+//                             group law of curve.cuh (small grids).  Each
+//                             digit's run has one tail, where the walk writes
+//                             its sum straight to tails[digit], with the
+//                             column index beside it when the run's head lies
+//                             in an earlier column.  It also writes the
+//                             column's last partial run sum and whether it
+//                             holds a head (replaces _scan_kernel; the TPU
+//                             wrote every prefix and compacted the tails
+//                             afterwards).  See the section's note.
 //   K5  colscan_tile_kernel,  a blocked segmented scan over the column
 //       colscan_rows_kernel,  summaries in three passes (a tile's thread
 //       colscan_carry_kernel  totals, the tile totals of a row, then each
@@ -53,35 +56,42 @@
 //                             generator, 12 doublings a window (replaces
 //                             _shift_gens_kernel).
 //   K9  horner_kernel         the variable-base MSM's last step: 22 window
-//                             sums S_w -> sum_w 2^(12 w) S_w, one thread a
-//                             batch row, from the top window down: 12
-//                             doublings, then one add (replaces
+//                             sums S_w -> sum_w 2^(12 w) S_w, one group of
+//                             8 threads a batch row, from the top window
+//                             down: 12 doublings, then one add (replaces
 //                             _horner_kernel, which ran the same chain on
 //                             one live element of an (8, 128) vreg).
 //
-// What bounds them on this card.  A point is 96 bytes and a complete add
-// ~14 Montgomery products, so K4, K6, K7 and K9 are bound by the latency of
-// dependent 32x32->64-bit multiply chains, not by memory: K4 does `rows`
-// dependent adds a thread, K6 34 operations (1 + 11 adds, then 11 doublings
-// and 11 adds on one thread), K7 264 doublings a thread, K9 264 doublings
-// and 22 adds on a single thread (its 2.2 KB of input are nothing; a
-// redesign has to cut the chain, not the bytes).  K5 is 15 adds deep at the
-// commit's shape; at the MSM's it is bound by how it moves the column
-// summaries (100 MB at n = 2^20), which is why it reads them twice, writes
-// the carries once, and does both through shared memory in 16-byte pieces.
-// The layout's lever is parallelism: K4 has batch * cols threads
-// (cols = ceil(22 n / rows)); the wrapper picks rows, and so the cost split
-// between K4 (depth rows) and K5 (work and bytes by cols).  No kernel uses
-// atomics: each add has a fixed order, so each kernel equals its plain
-// version (curves/kernels.py) bit for bit.
+// What bounds them on this card.  A point is 96 bytes and a complete add 12
+// Montgomery products (3b a is a small-constant multiply), so K4, K6, K7
+// and K9 are bound by the latency of dependent 32x32->64-bit multiply
+// chains, not by memory: K4 does `rows` dependent adds a column, K6 34
+// operations (1 + 11 adds, then 11 doublings and 11 adds on one thread),
+// K7 264 doublings a thread, K9 264 doublings and 22 adds a batch row (its
+// 2.2 KB of input are nothing; the chain cannot be cut, so a group of 8
+// threads runs each operation, which cuts its latency: curve.cuh).  K4 also
+// gathers a 96-byte record an add from a table of 34.6 to 100 MB, which its
+// adds hide; where its grid is too small to keep the schedulers busy it
+// runs a column on a group, which shortens the chain of adds.
+// K5 is 15 adds deep at the commit's shape; at the MSM's it is bound by how
+// it moves the column summaries (100 MB at n = 2^20), which is why it reads
+// them twice, writes the carries once, and does both through shared memory
+// in 16-byte pieces.  The layout's lever is parallelism: K4 has batch * cols
+// columns (cols = ceil(22 n / rows)); the wrapper picks rows, and so the
+// cost split between K4 (depth rows) and K5 (work and bytes by cols).  No
+// kernel uses atomics: each add has a fixed order, so each kernel equals
+// its plain version (curves/kernels.py) bit for bit.
 //
-// tests/test_torch_msm_kernel_host.py compiles this file as host C++.  K3,
-// K4, K7 and K9 use no CUDA intrinsic and run there thread by thread as they
-// are.  K5 and K6 synchronise inside a block, so what a thread does between
-// two barriers is a __device__ function on explicit buffers; the __global__
-// kernels that call them between barriers are for nvcc alone
-// (#ifdef __CUDACC__), and the host test calls the same functions from loops
-// of its own.
+// tests/test_torch_msm_kernel_host.py compiles this file as host C++.  K3
+// and K7 use no CUDA intrinsic and run there thread by thread as they are.
+// K4-K6 and K9 synchronise inside a block or a group, so what a thread (or
+// a group's lane) does between two barriers is a __device__ function on
+// explicit buffers; the __global__ kernels that call them between barriers
+// are for nvcc alone (#ifdef __CUDACC__), and the host test calls the same
+// functions from loops of its own.  The grouped walks (K4's group form, K9)
+// are templates over their lanes: on the card each thread is a lane
+// (GroupLanes), on the host the test runs the lanes one after another at
+// each step.
 
 #pragma once
 
@@ -221,68 +231,13 @@ __global__ void __launch_bounds__(PBLOCK)
 }
 
 // ---------------------------------------------------------------------
-// K4: run sums down each column, tails written to their buckets
-// ---------------------------------------------------------------------
-
-// keys (batch, m_pad) sorted; m_pad = cols * rows.  Outputs:
-//   tails (batch, NB, 3, 8)     sum of the run's items in the tail's column
-//                               (written for each digit that has a run,
-//                               bucket 0 excepted; the rest is left as the
-//                               caller filled it)
-//   tail_col (batch, NB)        the tail's column when the run's head lies
-//                               in an earlier column, else left as filled
-//   col_sums (batch, cols, 3, 8), col_flags (batch, cols)
-//                               the column's last partial run sum, and
-//                               whether the column holds a run head
-template <int K>
-__global__ void __launch_bounds__(PBLOCK)
-    scan_kernel(const uint32_t* __restrict__ table, const int64_t* __restrict__ keys,
-                uint32_t* __restrict__ tails, int32_t* __restrict__ tail_col,
-                uint32_t* __restrict__ col_sums, int32_t* __restrict__ col_flags,
-                int64_t m_pad, int64_t rows, int64_t cols, int64_t batch) {
-  const int64_t g = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
-  if (g >= batch * cols) return;
-  const int64_t k = g / cols, c = g % cols;
-  const int64_t* row = keys + k * m_pad;
-  const int64_t pos0 = c * rows;
-  int64_t prev_d = pos0 > 0 ? row[pos0 - 1] >> 32 : -1;
-  int64_t key = row[pos0];
-  bool seen_head = false;
-  Pt acc, p;
-#pragma unroll 1
-  for (int64_t r = 0; r < rows; ++r) {
-    const int64_t pos = pos0 + r;
-    const int64_t next = pos + 1 < m_pad ? row[pos + 1] : -1;
-    const int64_t d = key >> 32;
-    const bool head = d != prev_d;
-    load_pt(p, table, key & 0xFFFFFFFF);
-    if (r == 0 || head) {
-      copy_pt(acc, p);
-    } else {
-      add_pt<K>(acc, acc, p);
-    }
-    seen_head = seen_head || head;
-    if (d != 0 && (next < 0 || (next >> 32) != d)) {  // the run's tail
-      store_pt(tails, k * NB + d, acc);
-      if (!seen_head) tail_col[k * NB + d] = (int32_t)c;
-    }
-    prev_d = d;
-    key = next;
-  }
-  store_pt(col_sums, g, acc);
-  col_flags[g] = seen_head ? 1 : 0;
-}
-
-// ---------------------------------------------------------------------
-// 128-bit access to points, for K5 and K6
+// 128-bit access to points, for K4-K6 and K9
 // ---------------------------------------------------------------------
 
 // A point record is 96 bytes, six 16-byte pieces; records start on 16-byte
 // boundaries (torch allocations are 512-byte aligned).
-struct alignas(16) U4 {
-  uint32_t w[4];
-};
 constexpr int PIECES = PT / 4;  // 16-byte pieces a point
+static_assert(PIECES <= GROUP, "a group's lanes move a record a piece each");
 
 __device__ __forceinline__ void load_pt4(Pt& p, const U4* src) {
   U4 q[PIECES];
@@ -321,6 +276,220 @@ __device__ __forceinline__ const U4* pt_at(const uint32_t* base, int64_t i) {
 __device__ __forceinline__ U4* pt_at(uint32_t* base, int64_t i) {
   return reinterpret_cast<U4*>(base + i * PT);
 }
+
+#ifdef __CUDACC__
+// The lanes of a group on the card: each thread is one lane and runs its
+// own part of a step; sync() is the group's own __syncwarp.  The host test
+// has a serial counterpart that runs the lanes one after another.
+struct GroupLanes {
+  int lane;
+  unsigned mask;
+  U4 pre_;  // lanes below PIECES: the lane's piece of the next record, in flight
+  __device__ GroupLanes() : lane((int)(threadIdx.x % GROUP)), mask(group_mask()) {}
+  template <class F>
+  __device__ __forceinline__ void each(F f) {
+    f(lane);
+  }
+  __device__ __forceinline__ void sync() { __syncwarp(mask); }
+  __device__ __forceinline__ U4& pre(int) { return pre_; }
+  template <int K>
+  __device__ __forceinline__ void add(uint32_t* buf) {
+    group_add<K>(buf, lane, mask);
+  }
+  template <int K>
+  __device__ __forceinline__ void dbl(uint32_t* buf) {
+    group_dbl<K>(buf, lane, mask);
+  }
+};
+#endif  // __CUDACC__
+
+// ---------------------------------------------------------------------
+// K4: run sums down each column, tails written to their buckets
+// ---------------------------------------------------------------------
+//
+// keys (batch, m_pad) sorted; m_pad = cols * rows, so column g = k cols + c
+// of the flattened grid holds the flat keys g rows .. g rows + rows - 1.
+// Outputs:
+//   tails (batch, NB, 3, 8)     sum of the run's items in the tail's column
+//                               (written for each digit that has a run,
+//                               bucket 0 excepted; the rest is left as the
+//                               caller filled it)
+//   tail_col (batch, NB)        the tail's column when the run's head lies
+//                               in an earlier column, else left as filled
+//   col_sums (batch, cols, 3, 8), col_flags (batch, cols)
+//                               the column's last partial run sum, and
+//                               whether the column holds a run head
+//
+// Replaces vdf_tpu/curves/pallas_msm.py:150 _scan_kernel (which wrote every
+// prefix and compacted the tails afterwards).  What bounds it: `rows`
+// dependent adds a column, 84-91% of its time (tools/k4_split.py), each on
+// a 96-byte record gathered from wherever the key points into a table of
+// 34.6 MB (a commit) to 100 MB (the MSM).  Two forms, the same adds in the
+// same order:
+//   thread form (scan_kernel): one thread a column, records read and sums
+//     written in 16-byte pieces.  Where the grid fills the card the adds
+//     are bound by instruction issue, and nothing beats one thread an add:
+//     a group of 8 threads issues about twice the instructions an add.
+//     (Keeping the next record in flight, in registers or by cp.async into
+//     shared memory with the keys staged there, measured no faster.)
+//   group form (scan_group_kernel): one group of GROUP lanes a column with
+//     the group law of curve.cuh, each add ~4 steps deep, not 12 products;
+//     each lane holds its piece of the next record in a register while the
+//     group adds.
+//     For grids that leave the schedulers idle (a few thousand columns: the
+//     engine's commits), where the chain of adds, not issue, is the bound.
+// The wrapper picks the form from the grid's size (curves/kernels.py
+// scan_form).
+
+constexpr int SCAN_MAX_ROWS = 64;  // the group form's limit: it stages rows + 2 keys
+
+template <int K>
+__global__ void __launch_bounds__(PBLOCK)
+    scan_kernel(const uint32_t* __restrict__ table, const int64_t* __restrict__ keys,
+                uint32_t* __restrict__ tails, int32_t* __restrict__ tail_col,
+                uint32_t* __restrict__ col_sums, int32_t* __restrict__ col_flags,
+                int64_t rows, int64_t cols, int64_t batch) {
+  const int64_t g = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
+  if (g >= batch * cols) return;
+  const int64_t k = g / cols, c = g % cols, m_pad = rows * cols;
+  const int64_t* row = keys + k * m_pad;
+  const int64_t pos0 = c * rows;
+  int64_t prev_d = pos0 > 0 ? row[pos0 - 1] >> 32 : -1;
+  int64_t key = row[pos0];
+  bool seen_head = false;
+  Pt acc, p;
+#pragma unroll 1
+  for (int64_t r = 0; r < rows; ++r) {
+    const int64_t pos = pos0 + r;
+    const int64_t next = pos + 1 < m_pad ? row[pos + 1] : -1;
+    const int64_t d = key >> 32;
+    const bool head = d != prev_d;
+    load_pt4(p, pt_at(table, key & 0xFFFFFFFF));
+    if (r == 0 || head) {
+      copy_pt(acc, p);
+    } else {
+      add_pt<K>(acc, acc, p);
+    }
+    seen_head = seen_head || head;
+    if (d != 0 && (next < 0 || (next >> 32) != d)) {  // the run's tail
+      store_pt4(pt_at(tails, k * NB + d), acc);
+      if (!seen_head) tail_col[k * NB + d] = (int32_t)c;
+    }
+    prev_d = d;
+    key = next;
+  }
+  store_pt4(pt_at(col_sums, g), acc);
+  col_flags[g] = seen_head ? 1 : 0;
+}
+
+// Group form, GROUP lanes a column.  Shared memory: PBLOCK / GROUP group
+// buffers (GROUP_WORDS each), then each group's keys, rows + 2 of them:
+// key[-1] .. key[rows] of its column at gkeys[0 ..], -1 before a row's first
+// column and after its last.
+constexpr int SCAN_GROUPS = PBLOCK / GROUP;  // columns a block
+constexpr int64_t scan_group_shared_bytes(int64_t rows) {
+  return (int64_t)SCAN_GROUPS * (GROUP_WORDS * 4 + (rows + 2) * 8);
+}
+static_assert(scan_group_shared_bytes(SCAN_MAX_ROWS) <= 48 * 1024,
+              "the group form's shared memory needs no opt-in");
+
+__device__ __forceinline__ void scan_group_setup_lane(int64_t* gkeys, uint32_t* buf,
+                                                      const int64_t* keys, int64_t rows,
+                                                      int64_t cols, int64_t g, int lane) {
+  const int64_t c = g % cols;
+  for (int64_t i = lane; i < rows + 2; i += GROUP) {
+    const bool outside = (i == 0 && c == 0) || (i == rows + 1 && c + 1 == cols);
+    gkeys[i] = outside ? -1 : keys[g * rows + i - 1];
+  }
+  for (int j = lane; j < NL; j += GROUP) buf[GS_ZERO * NL + j] = 0;
+}
+
+// Lane l < PIECES: piece l of row r's record, which it holds in flight
+// (pre), into slot P (a run's head, or the column's first row) or Q; then
+// piece l of row r + 1's record into pre, in flight while the group adds.
+template <class Lanes>
+__device__ __forceinline__ void scan_group_fetch_lane(Lanes& L, uint32_t* buf,
+                                                      const uint32_t* table,
+                                                      const int64_t* gkeys, int64_t r,
+                                                      int64_t rows, bool to_p, int lane) {
+  if (lane >= PIECES) return;
+  reinterpret_cast<U4*>(buf + (to_p ? GS_P : GS_Q) * NL)[lane] = L.pre(lane);
+  if (r + 1 < rows) L.pre(lane) = pt_at(table, gkeys[r + 2] & 0xFFFFFFFF)[lane];
+}
+
+// Lane l < PIECES: piece l of slot P to point i of dst; the last lane also
+// writes the int32 `value` to *flag when `write_flag`.
+__device__ __forceinline__ void group_store_lane(const uint32_t* buf, uint32_t* dst, int64_t i,
+                                                 int32_t* flag, int32_t value, bool write_flag,
+                                                 int lane) {
+  if (lane < PIECES) pt_at(dst, i)[lane] = reinterpret_cast<const U4*>(buf + GS_P * NL)[lane];
+  if (lane == GROUP - 1 && write_flag) *flag = value;
+}
+
+// A group's walk down column g.  `Lanes` runs a step on the group: on the
+// card each thread is one lane (GroupLanes); the host test runs the lanes
+// one after another.  Within a step no lane reads what another writes.
+template <int K, class Lanes>
+__device__ __forceinline__ void scan_group_walk(Lanes& L, uint32_t* buf, int64_t* gkeys,
+                                                const uint32_t* table, const int64_t* keys,
+                                                uint32_t* tails, int32_t* tail_col,
+                                                uint32_t* col_sums, int32_t* col_flags,
+                                                int64_t rows, int64_t cols, int64_t g) {
+  const int64_t k = g / cols, c = g % cols;
+  L.each([&](int lane) { scan_group_setup_lane(gkeys, buf, keys, rows, cols, g, lane); });
+  L.sync();
+  L.each([&](int lane) {
+    if (lane < PIECES) L.pre(lane) = pt_at(table, gkeys[1] & 0xFFFFFFFF)[lane];
+  });
+  int64_t prev_d = gkeys[0] >> 32;
+  bool seen_head = false;
+#pragma unroll 1
+  for (int64_t r = 0; r < rows; ++r) {
+    const int64_t d = gkeys[r + 1] >> 32, next = gkeys[r + 2];
+    const bool head = d != prev_d, start = r == 0 || head;
+    L.each([&](int lane) {
+      scan_group_fetch_lane(L, buf, table, gkeys, r, rows, start, lane);
+    });
+    L.sync();
+    if (!start) L.template add<K>(buf);
+    seen_head = seen_head || head;
+    if (d != 0 && (next < 0 || (next >> 32) != d)) {  // the run's tail
+      L.each([&](int lane) {
+        group_store_lane(buf, tails, k * NB + d, tail_col + k * NB + d, (int32_t)c,
+                         !seen_head, lane);
+      });
+      L.sync();  // slot P is read before the next row writes it
+    }
+    prev_d = d;
+  }
+  L.each([&](int lane) {
+    group_store_lane(buf, col_sums, g, col_flags + g, seen_head ? 1 : 0, true, lane);
+  });
+}
+
+#ifdef __CUDACC__
+
+extern __shared__ U4 scan_shared[];
+
+template <int K>
+__global__ void __launch_bounds__(PBLOCK)
+    scan_group_kernel(const uint32_t* __restrict__ table, const int64_t* __restrict__ keys,
+                      uint32_t* __restrict__ tails, int32_t* __restrict__ tail_col,
+                      uint32_t* __restrict__ col_sums, int32_t* __restrict__ col_flags,
+                      int64_t rows, int64_t cols, int64_t batch) {
+  const int group = threadIdx.x / GROUP;
+  const int64_t g = (int64_t)blockIdx.x * SCAN_GROUPS + group;
+  if (g >= batch * cols) return;  // the whole group: no lane of it waits below
+  uint32_t* buf = reinterpret_cast<uint32_t*>(scan_shared) + group * GROUP_WORDS;
+  int64_t* gkeys = reinterpret_cast<int64_t*>(reinterpret_cast<uint32_t*>(scan_shared) +
+                                              SCAN_GROUPS * GROUP_WORDS) +
+                   group * (rows + 2);
+  GroupLanes L;
+  scan_group_walk<K>(L, buf, gkeys, table, keys, tails, tail_col, col_sums, col_flags, rows,
+                     cols, g);
+}
+
+#endif  // __CUDACC__
 
 // ---------------------------------------------------------------------
 // K5: carries into the columns
@@ -790,30 +959,84 @@ __global__ void __launch_bounds__(FINISH_THREADS)
 // ---------------------------------------------------------------------
 // K9: sum_w 2^(12 w) S_w a batch row
 // ---------------------------------------------------------------------
-
+//
 // sums (batch, W, 3, 8), least significant window first -> out (batch, 3, 8).
-// One thread a batch row, from the identity: for w = W - 1 down to 0,
-// acc = 2^12 acc + S_w.  The complete formulas take the identity and equal
-// operands, so no case is special.
+// Replaces vdf_tpu/curves/pallas_msm.py:234 _horner_kernel (the same chain
+// on one live element of an (8, 128) vreg).  From the identity, for w =
+// W - 1 down to 0: acc = 2^12 acc + S_w; the complete formulas take the
+// identity and equal operands, so no case is special.  What bounds it: the
+// chain, 264 doublings and 22 adds one after another (2^252 S_21 needs 252
+// doublings whatever the schedule), and the MSM has one batch row; its
+// 2.1 KB of input are nothing.  So the design cuts the latency of one
+// operation: a group of GROUP lanes a batch row runs each add and doubling
+// with the group law of curve.cuh (4 steps, two of them one product deep),
+// where one thread runs 12 products an add and 8 a doubling.  The group first
+// copies the row's 22 window sums into shared memory in 16-byte pieces and
+// reduces each coordinate (canon), as the plain version does on load.
+
+constexpr int HORNER_GROUPS = 4;                   // batch rows a block
+constexpr int HORNER_PIECES = WINDOWS * PIECES;    // 16-byte pieces of a row's sums
+
+// The group of batch row `row`: its window sums into `stage` ...
+__device__ __forceinline__ void horner_stage_lane(U4* stage, const uint32_t* sums, int64_t row,
+                                                  int lane) {
+  const U4* src = pt_at(sums, row * WINDOWS);
+  for (int q = lane; q < HORNER_PIECES; q += GROUP) stage[q] = src[q];
+}
+
+// ... each coordinate reduced below p, the zero slot and slot P = identity.
 template <int K>
-__global__ void __launch_bounds__(PBLOCK)
-    horner_kernel(const uint32_t* __restrict__ sums, uint32_t* __restrict__ out,
-                  int64_t batch) {
-  const int64_t g = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
-  if (g >= batch) return;
-  Pt acc, s;
-  set_identity<K>(acc);
+__device__ __forceinline__ void horner_setup_lane(U4* stage, uint32_t* buf, int lane) {
+  uint32_t* words = reinterpret_cast<uint32_t*>(stage);
+  for (int e = lane; e < 3 * WINDOWS; e += GROUP) canon<K>(words + e * NL);
+  for (int j = lane; j < NL; j += GROUP) {
+    buf[GS_ZERO * NL + j] = 0;
+    buf[GS_P * NL + j] = 0;
+    buf[(GS_P + 1) * NL + j] = mont_one<K>(j);
+    buf[(GS_P + 2) * NL + j] = 0;
+  }
+}
+
+// Lane l < PIECES: piece l of window sum w into slot Q.
+__device__ __forceinline__ void horner_load_lane(uint32_t* buf, const U4* stage, int w,
+                                                 int lane) {
+  if (lane < PIECES) reinterpret_cast<U4*>(buf + GS_Q * NL)[lane] = stage[w * PIECES + lane];
+}
+
+template <int K, class Lanes>
+__device__ __forceinline__ void horner_walk(Lanes& L, uint32_t* buf, U4* stage,
+                                            const uint32_t* sums, uint32_t* out, int64_t row) {
+  L.each([&](int lane) { horner_stage_lane(stage, sums, row, lane); });
+  L.sync();
+  L.each([&](int lane) { horner_setup_lane<K>(stage, buf, lane); });
+  L.sync();
 #pragma unroll 1
   for (int w = WINDOWS - 1; w >= 0; --w) {
 #pragma unroll 1
-    for (int b = 0; b < WINDOW_BITS; ++b) dbl_pt<K>(acc, acc);
-    load_pt(s, sums, g * WINDOWS + w);
-    canon<K>(s.x);
-    canon<K>(s.y);
-    canon<K>(s.z);
-    add_pt<K>(acc, acc, s);
+    for (int b = 0; b < WINDOW_BITS; ++b) L.template dbl<K>(buf);
+    L.each([&](int lane) { horner_load_lane(buf, stage, w, lane); });
+    L.sync();
+    L.template add<K>(buf);
   }
-  store_pt(out, g, acc);
+  L.each([&](int lane) { group_store_lane(buf, out, row, nullptr, 0, false, lane); });
 }
+
+#ifdef __CUDACC__
+
+// A block of HORNER_GROUPS groups.
+template <int K>
+__global__ void __launch_bounds__(HORNER_GROUPS * GROUP)
+    horner_kernel(const uint32_t* __restrict__ sums, uint32_t* __restrict__ out,
+                  int64_t batch) {
+  __shared__ U4 bufs[HORNER_GROUPS][GROUP_WORDS / 4];
+  __shared__ U4 stages[HORNER_GROUPS][HORNER_PIECES];
+  const int group = threadIdx.x / GROUP;
+  const int64_t row = (int64_t)blockIdx.x * HORNER_GROUPS + group;
+  if (row >= batch) return;  // the whole group
+  GroupLanes L;
+  horner_walk<K>(L, reinterpret_cast<uint32_t*>(bufs[group]), stages[group], sums, out, row);
+}
+
+#endif  // __CUDACC__
 
 }  // namespace vdf

@@ -29,7 +29,8 @@ Layouts (int32 limb bit patterns, points stacked ``(..., 3, 8)``):
                            item w n + i = 2^(12 w) G_i
   bucket_scan   K4         table, sorted keys (K, m_pad), rows ->
                            tails (K, NB, 3, 8), tail_col (K, NB) int32,
-                           col_sums (K, cols, 3, 8), col_flags (K, cols)
+                           col_sums (K, cols, 3, 8), col_flags (K, cols);
+                           in one of two forms (scan_form), the same bits
   column_carries K5        col_sums, col_flags -> carries (K, cols, 3, 8)
   bucket_sums   K6         tails, tail_col, carries -> (K, 3, 8):
                            sum_b b B_b for each batch row
@@ -41,6 +42,8 @@ passes a call and K6 two, each counted once).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -59,6 +62,16 @@ WINDOWS = 22  # W: 22 windows of 12 bits cover any Pasta scalar
 WINDOW_BITS = 12  # c
 NB = 1 << WINDOW_BITS  # buckets a batch row
 PBLOCK = 128  # threads a block of the point kernels (csrc/msm_kernels.cuh)
+# K4's two forms, as vdf_scan numbers them: one thread a column, or one group
+# of 8 threads a column (csrc/curve.cuh's GROUP) on the group law.
+SCAN_FORMS = ("thread", "group")
+# K4 takes the group form below this many columns an SM: there the one-thread
+# form leaves the schedulers idle; above it the group form's extra
+# instructions cost more than its shorter chain saves (tools/msm_stage_sweep.py:
+# the group form wins at 62 columns an SM, the thread form at 124).  The
+# group form stages a column's keys in shared memory, SCAN_MAX_ROWS at most.
+SCAN_GROUP_BELOW = 96
+SCAN_MAX_ROWS = 64
 # K6: where its schedule is cut between the two launches (chunks of
 # 2^BUCKET_CHUNK_BITS buckets, a block of BUCKET_THREADS each), and the
 # points of scratch a batch row takes.  The cut changes no output bit.
@@ -246,11 +259,30 @@ def shift_gens_plain(field_name: str, gens: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def scan_form(columns: int, rows: int, device) -> str:
+    """K4's form for a grid of ``columns`` (batch * cols) of ``rows`` on the
+    CUDA ``device``: "group" where the grid gives each SM fewer than
+    SCAN_GROUP_BELOW columns (the engine's commits of ~4,096 columns) and the
+    columns are at most SCAN_MAX_ROWS high, else "thread" (a commit at
+    n = 2^14, 16,384 columns; the MSM's 1.05M)."""
+    if rows > SCAN_MAX_ROWS:
+        return "thread"
+    index = torch.device(device).index
+    sms = _sm_count(torch.cuda.current_device() if index is None else index)
+    return "group" if columns < SCAN_GROUP_BELOW * sms else "thread"
+
+
 def bucket_scan(field_name: str, table: torch.Tensor, keys: torch.Tensor, rows: int):
     """K4 (replaces pallas_msm._scan_kernel and the tail compaction after
     it).  ``keys`` (K, m_pad) sorted along each row, every item below
     ``table``'s length (as canon_digits and a sort give them); m_pad =
-    cols * rows.  Returns (tails, tail_col, col_sums, col_flags)."""
+    cols * rows.  Returns (tails, tail_col, col_sums, col_flags), the same
+    bits in either of K4's forms, which scan_form picks."""
     device = _check(field_name, table=table, keys=keys)
     _check_shape("table", table, torch.int32, (None, 3, NLIMBS))
     _check_shape("keys", keys, torch.int64, (None, None))
@@ -265,9 +297,10 @@ def bucket_scan(field_name: str, table: torch.Tensor, keys: torch.Tensor, rows: 
     col_sums = torch.empty((k, cols, 3, NLIMBS), dtype=torch.int32, device=device)
     col_flags = torch.empty((k, cols), dtype=torch.int32, device=device)
     if k:
+        form = SCAN_FORMS.index(scan_form(k * cols, rows, device))
         _launch("vdf_scan", "scan", device, _field_index(field_name), table.data_ptr(),
                 keys.data_ptr(), tails.data_ptr(), tail_col.data_ptr(), col_sums.data_ptr(),
-                col_flags.data_ptr(), m_pad, rows, cols, k)
+                col_flags.data_ptr(), m_pad, rows, cols, k, form)
     return tails, tail_col, col_sums, col_flags
 
 
@@ -516,7 +549,8 @@ def bucket_sums_plain(field_name: str, tails: torch.Tensor, tail_col: torch.Tens
 def horner(field_name: str, sums: torch.Tensor) -> torch.Tensor:
     """K9 (replaces pallas_msm._horner_kernel): window sums (B, W, 3, 8),
     least significant window first -> (B, 3, 8), sum_w 2^(12 w) S_w: from
-    the identity, 12 doublings and one complete add a window, top down."""
+    the identity, 12 doublings and one complete add a window, top down; on
+    the card a group of 8 threads a batch row."""
     device = _check(field_name, sums=sums)
     _check_shape("sums", sums, torch.int32, (None, WINDOWS, 3, NLIMBS))
     if _device_kind(device) == "cpu":
