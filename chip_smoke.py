@@ -30,15 +30,22 @@ Phases (any failure exits non-zero; nothing is caught):
              (scan, in the form its wrapper picks and in each of its two
              forms), K5 (colscan) and K6 (bucket) against their plain
              versions on the card, on Pallas and Vesta at n = 256 (K = 2
-             rows): every output element bit-for-bit equal; K5 and K6 again
+             rows): every output element bit-for-bit equal; K7 in each of its
+             two forms (a thread a generator, a group of 8 threads a
+             generator) at n = 1, 127, 129, 4,096 and 2^14, the group form the
+             same bits 20 launches over; K3 in each key width (int32 and
+             int64) at n = 2^14, K = 1 and 2, also with padding after the
+             items; K4 in each form on the int64 keys of the same data, the
+             same bits as on the int32 keys; K5 and K6 again
              at the shapes that stress their structure (rows of one column,
              of a tile and one more, of a ragged last tile, of more tiles
              than one block scans at once, a head in every column and in
              none; a carry into no bucket and into every bucket, identity
              tails); then at the commit's main shape, n = 2^14, each
              kernel's time beside its plain version's, outputs again
-             bit-for-bit equal, K4's time in each form (and the form its
-             wrapper picks), each form the same bits 20 launches over;
+             bit-for-bit equal, K4's and K7's time in each form (and the
+             form each wrapper picks; K7 also at n = 4,096), each K4 form the
+             same bits 20 launches over; torch.sort in each key width;
   6. commit  for Pallas and Vesta: commitment_key(curve, 2^14) (host
              derivation and K7 table timed apart), commit of xorshift
              scalars == the native C++ Pippenger in affine (Pallas; on Vesta
@@ -55,6 +62,8 @@ Phases (any failure exits non-zero; nothing is caught):
              K5, K6 in the variable-base shape (22 batch rows, one a window)
              against theirs at n = 2^12: bit for bit, K4 (each form), K5, K6
              and K9 the same bits 20 launches over; then on Pallas at n = 2^20
+             K3 in each key width and K4 in each form on both widths against
+             plain, torch.sort in each width, and
              each stage's time (K4's in each form, each the same bits 20
              launches over) beside its plain version's on the same
              tensors (K4's and K5's one window row at a time, to bound
@@ -223,7 +232,7 @@ def _kernel_products(kname: str, args, out) -> tuple[int, int]:
         return _point_ops(0, args[1].shape[0] * (CK.WINDOWS - 1) * CK.WINDOW_BITS)
     if kname == "scan":  # one add an item that continues a run inside its column
         keys, rows = args[2], args[3]
-        d = (keys >> 32).reshape(keys.shape[0], -1, rows)
+        d = CK.key_digit(keys).reshape(keys.shape[0], -1, rows)
         return _point_ops(int((d[:, :, 1:] == d[:, :, :-1]).sum().item()), 0)
     if kname == "colscan":  # one add a column after the first that holds no run's head
         return _point_ops(int((args[2][:, 1:] == 0).sum().item()), 0)
@@ -442,6 +451,16 @@ def phase_main(device, lanes: int, t: int, t_append: int) -> dict:
     return out
 
 
+def _generators(curve_name: str, n: int, device):
+    """n generators: the points of a small hash-derived set, repeated to n,
+    as affine ints and as (n, 3, 8) on the device."""
+    from vdf_tpu_torch.curves import get_curve, hash_to_curve_ints, stack_point
+
+    base = hash_to_curve_ints(curve_name, min(n, COMMIT_CHECK_N), domain=b"vdf_tpu/t")
+    aff = [base[i % len(base)] for i in range(n)]
+    return aff, stack_point(get_curve(curve_name).from_affine_ints(aff, device)).contiguous()
+
+
 def _commit_inputs(curve_name: str, n: int, k: int, device):
     """Inputs of the commit kernels at length n: the points of a small
     hash-derived set, repeated to n, as generators (n, 3, 8) and as
@@ -451,15 +470,13 @@ def _commit_inputs(curve_name: str, n: int, k: int, device):
     import numpy as np
     import torch
 
-    from vdf_tpu_torch.curves import get_curve, hash_to_curve_ints, stack_point
+    from vdf_tpu_torch.curves import get_curve
     from vdf_tpu_torch.curves import kernels as CK
     from vdf_tpu_torch.curves.bucket_msm import layout
     from vdf_tpu_torch.utils import TEST_SEED, XorShiftRng
 
     c = get_curve(curve_name)
-    base = hash_to_curve_ints(curve_name, min(n, COMMIT_CHECK_N), domain=b"vdf_tpu/t")
-    aff = [base[i % len(base)] for i in range(n)]
-    gens = stack_point(c.from_affine_ints(aff, device)).contiguous()
+    aff, gens = _generators(curve_name, n, device)
     xs = b"".join(x.to_bytes(32, "little") for x, _ in aff)
     ints = torch.from_numpy(np.frombuffer(xs, dtype="<u4").view(np.int32).copy())
     ints = ints.reshape(n, 8).to(device)
@@ -524,7 +541,7 @@ def _scan_launch(a, form: str, res=None):
     if _build.load_kernels().lib.vdf_scan(
             _build.FIELD_INDEX[bf], table.data_ptr(), keys.data_ptr(),
             *(x.data_ptr() for x in res), m_pad, rows, cols, batch, CK.SCAN_FORMS.index(form),
-            torch.cuda.current_stream().cuda_stream):
+            CK.key_bits_of(keys), torch.cuda.current_stream().cuda_stream):
         raise SystemExit(f"scan: the {form} form's launch failed")
     return res
 
@@ -565,6 +582,124 @@ def _scan_form_times(a, want, where: str, err: dict) -> dict:
          f"{out['thread']:.4f}, group form (8 threads a column) {out['group']:.4f}; the "
          f"wrapper picks the {out['chosen']} form here")
     return out
+
+
+def _keys64(keys):
+    """The int64 keys of the same (digit, item) pairs as ``keys``."""
+    from vdf_tpu_torch.curves import kernels as CK
+
+    return CK.make_keys(CK.key_digit(keys), CK.key_item(keys), 64)
+
+
+def _scan_widths(a, want, where: str, err: dict) -> None:
+    """K4 in each form on the int64 keys of the data of ``a`` (whose keys are
+    int32) == ``want``, the result on the int32 keys, bit for bit."""
+    import torch
+
+    from vdf_tpu_torch.curves import kernels as CK
+
+    bf, table, keys, rows = a
+    if keys.dtype != torch.int32:
+        raise SystemExit(f"scan {where}: expected the int32 keys the wrapper makes here")
+    wide = (bf, table, _keys64(keys), rows)
+    for form in CK.SCAN_FORMS:
+        got = _scan_launch(wide, form)
+        torch.cuda.synchronize()
+        _require_same("scan", f"{where} ({form} form, int64 keys)", got, want, err)
+
+
+def _digits_widths(sf: str, scalars, m_pad: int, window_rows: bool, where: str,
+                   err: dict) -> dict:
+    """K3 mode 0 in each key width == its plain version, bit for bit, every
+    position (the padding the kernel writes too); torch.sort of each width's
+    keys timed (mean of 5), the two sorted sequences the same pairs.
+    Returns {key_bits: sort ms}."""
+    import torch
+
+    from vdf_tpu_torch.curves import kernels as CK
+
+    sort_ms, pairs = {}, []
+    for bits in (32, 64):
+        got = CK.canon_digits(sf, scalars, m_pad, window_rows, key_bits=bits)
+        want = CK.canon_digits_plain(sf, scalars, m_pad, window_rows, key_bits=bits)
+        torch.cuda.synchronize()
+        if got.dtype != CK.KEY_DTYPES[bits]:
+            raise SystemExit(f"canon_digits {where}: {bits}-bit keys came as {got.dtype}")
+        _require_same("canon_digits", f"{where} ({bits}-bit keys)", got, want, err)
+        rows = got.reshape(-1, m_pad)
+        sort_ms[bits], out = _cuda_ms(lambda k: torch.sort(k, dim=-1).values, (rows,), reps=5)
+        pairs.append((CK.key_digit(out), CK.key_item(out)))
+        del got, want, rows, out
+    if not all(torch.equal(x, y) for x, y in zip(*pairs)):
+        raise SystemExit(f"torch.sort {where}: the int32 and int64 keys sort differently")
+    _log(f"commit kernels: canon_digits {where} == plain in both key widths, every position; "
+         f"torch.sort ms: int32 {sort_ms[32]:.4f}, int64 {sort_ms[64]:.4f}")
+    return sort_ms
+
+
+def _shift_launch(bf: str, gens, form: str, out=None):
+    """K7 in ``form`` (one of curves.kernels.SHIFT_FORMS) through its C
+    launcher (the wrapper launches only the form shift_form picks), into
+    ``out`` (fresh by default); returns the table."""
+    import torch
+
+    from vdf_tpu_torch import _build
+    from vdf_tpu_torch.curves import kernels as CK
+
+    n = gens.shape[0]
+    if out is None:
+        out = torch.empty((CK.WINDOWS * n, 3, 8), dtype=torch.int32, device=gens.device)
+    if _build.load_kernels().lib.vdf_shift_gens(
+            _build.FIELD_INDEX[bf], gens.data_ptr(), out.data_ptr(), n,
+            CK.SHIFT_FORMS.index(form), torch.cuda.current_stream().cuda_stream):
+        raise SystemExit(f"shift_gens: the {form} form's launch failed")
+    return out
+
+
+SHIFT_CHECK_N = (1, 127, 129, 4096, 1 << 14)  # K7 against plain in both forms
+SHIFT_TIMED_N = (4096, 1 << 14)  # the engine's key, a commit's
+
+
+def _shift_forms(device, err: dict) -> dict:
+    """K7 in each form == plain, bit for bit, at SHIFT_CHECK_N on both curves
+    (the generators of _generators); the group form the same bits REPEATS
+    launches over at the timed lengths; each form's device ms there (mean of
+    5 launches through the launcher) on Pallas, and the form the wrapper
+    picks."""
+    import torch
+
+    from vdf_tpu_torch.curves import CURVES
+    from vdf_tpu_torch.curves import kernels as CK
+
+    times = {}
+    for curve_name in COMMIT_CURVES:
+        bf = CURVES[curve_name].base_field
+        for n in SHIFT_CHECK_N:
+            gens = _generators(curve_name, n, device)[1]
+            want = CK.shift_gens_plain(bf, gens)
+            for form in CK.SHIFT_FORMS:
+                got = _shift_launch(bf, gens, form)
+                torch.cuda.synchronize()
+                _require_same("shift_gens", f"on {curve_name} at n={n} ({form} form)", got, want,
+                              err)
+            if n not in SHIFT_TIMED_N:
+                continue
+            for _ in range(REPEATS):
+                if not torch.equal(_shift_launch(bf, gens, "group"), want):
+                    raise SystemExit(f"shift_gens on {curve_name} at n={n} (group form): two "
+                                     f"launches on the same inputs gave different outputs")
+            if curve_name == "pallas":
+                out = {"chosen": CK.shift_form(n, device)}
+                for form in CK.SHIFT_FORMS:
+                    res = _shift_launch(bf, gens, form)
+                    out[form], _ = _cuda_ms(_shift_launch, (bf, gens, form, res), reps=5)
+                times[f"n={n}"] = out
+                _log(f"timing: shift_gens on pallas at n={n}, device ms through the launcher: "
+                     f"thread form {out['thread']:.4f}, group form {out['group']:.4f}; the "
+                     f"wrapper picks the {out['chosen']} form here")
+        _log(f"commit kernels: {curve_name} K7 == plain in both forms at n={SHIFT_CHECK_N}, bit "
+             f"for bit; the group form the same bits {REPEATS} launches over at {SHIFT_TIMED_N}")
+    return times
 
 
 # K5 at the shapes that stress its tiles: (batch rows, columns, share of columns
@@ -628,6 +763,7 @@ def phase_commit_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
     times; returns per-kernel error and the Pallas times at n."""
     import torch
 
+    from vdf_tpu_torch.curves import CURVES
     from vdf_tpu_torch.curves import kernels as CK
 
     err, times = {}, {}
@@ -644,11 +780,19 @@ def phase_commit_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
         _log(f"commit kernels: {curve_name} K3-K7 == plain at n={check_n}, K=2, bit for bit "
              f"(K4 in each form)")
         _edge_checks(curve_name, CK.shift_gens(*args["shift_gens"]), device, err)
+    shift_forms = _shift_forms(device, err)
 
+    sort_ms = {}
     for curve_name in COMMIT_CURVES:
+        sf = CURVES[curve_name].scalar_field
+        for k in (1, 2):
+            _, _, s, keys, _ = _commit_inputs(curve_name, n, k, device)
+            for m_pad in (keys.shape[1], keys.shape[1] + 5):  # the layout's, and with padding
+                where = f"on {curve_name} at n={n}, K={k}, m_pad={m_pad}"
+                ms = _digits_widths(sf, s, m_pad, False, where, err)
+                if curve_name == "pallas" and m_pad == keys.shape[1]:
+                    sort_ms[f"commit K={k}"] = ms
         gens, ints, s, keys, sorted_keys = _commit_inputs(curve_name, n, 1, device)
-        sort_ms, _ = _cuda_ms(lambda k: torch.sort(k, dim=-1).values, (keys,), reps=5)
-        _log(f"timing: torch.sort of {keys.shape[1]} keys on {curve_name}: {sort_ms:.4f} ms")
         args = _commit_stage_args(curve_name, gens, ints, s, sorted_keys)
         for kname, (fn, _) in COMMIT_KERNELS.items():
             ms, got = _cuda_ms(getattr(CK, fn), args[kname], reps=5)
@@ -663,6 +807,12 @@ def phase_commit_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
                 where = f"on {curve_name} at n={n}"
                 extra["forms"] = _scan_form_times(args[kname], want, where, err)
                 _scan_forms(args[kname], want, where, err, repeats=REPEATS)
+                _scan_widths(args[kname], want, where, err)
+            if kname == "shift_gens":
+                extra["forms"] = shift_forms
+            if kname == "canon_digits":
+                extra["key_bits"] = CK.key_bits_of(got)
+                extra["sort_ms"] = sort_ms
             if curve_name == "pallas":
                 times[kname] = {"ms": ms, "plain_ms": plain_ms, **bound, **extra}
     return {k: {"max_abs_err": err[k], **times[k]} for k in COMMIT_KERNELS}
@@ -971,8 +1121,10 @@ def phase_msm_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
                 if not torch.equal(fn(*a), first):
                     raise SystemExit(f"{kname} on {curve_name} at n={check_n}, 22 rows: two "
                                      f"launches on the same inputs gave different outputs")
-        _scan_forms(args["scan"], CK.bucket_scan_plain(*args["scan"]),
-                    f"on {curve_name} at n={check_n}, variable base", err, repeats=REPEATS)
+        scan_want = CK.bucket_scan_plain(*args["scan"])
+        where = f"on {curve_name} at n={check_n}, variable base"
+        _scan_forms(args["scan"], scan_want, where, err, repeats=REPEATS)
+        _scan_widths(args["scan"], scan_want, where, err)
         _log(f"msm kernels: {curve_name} K9 == plain at B=1 and 5; K3 (window rows), K4 (each "
              f"form), K5, K6, K9 == plain at n={check_n} (22 rows), bit for bit; K4 (each "
              f"form), K5, K6 and K9 the same bits {REPEATS} launches over")
@@ -980,9 +1132,10 @@ def phase_msm_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
     base_aff, pts, scalars, _ = _msm_inputs("pallas", n, device)
     args, keys = _msm_stage_args("pallas", pts, scalars)
     stages = {}
-    sort_ms, _ = _cuda_ms(lambda k: torch.sort(k, dim=-1).values, (keys,), reps=5)
-    stages["sort"] = {"ms": sort_ms}
-    _log(f"timing: torch.sort of {tuple(keys.shape)} int64 keys: {sort_ms:.4f} ms")
+    sf = CURVES["pallas"].scalar_field
+    sort_ms = _digits_widths(sf, scalars[None], keys.shape[1], True,
+                             f"on pallas at n={n}, window rows", err)
+    stages["sort"] = {"ms": sort_ms[CK.key_bits_of(keys)], "by_key_bits": sort_ms}
     for kname, a in args.items():
         fn = COMMIT_KERNELS[kname][0] if kname in COMMIT_KERNELS else kname
         ms, got = _cuda_ms(getattr(CK, fn), a, reps=5)
@@ -998,6 +1151,7 @@ def phase_msm_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
             where = f"on pallas at n={n}, variable base"
             stages[kname]["forms"] = _scan_form_times(a, want, where, err)
             _scan_forms(a, want, where, err, repeats=REPEATS)
+            _scan_widths(a, want, where, err)
         _log(f"timing: {kname} pallas variable base n={n}: kernel {ms:.4f} ms, plain "
              f"{stages[kname]['plain_ms']:.4f} ms, bound {stages[kname]['bound_ms']:.6f} ms "
              f"({stages[kname]['bound_by']}); == plain, bit for bit")
@@ -1009,7 +1163,7 @@ def phase_msm_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
     # version) summed by residue.
     c = get_curve("pallas")
     digit_sums = torch.zeros((CK.WINDOWS, len(base_aff)), dtype=torch.int64, device=device)
-    digit_sums.scatter_add_(1, (keys & 0xFFFFFFFF) % len(base_aff), keys >> 32)
+    digit_sums.scatter_add_(1, CK.key_item(keys) % len(base_aff), CK.key_digit(keys))
     for w, (s_w, coeffs) in enumerate(zip(args["horner"][1][0], digit_sums.tolist())):
         if _affine(c, s_w) != msm_native_affine("pallas", list(base_aff), coeffs):
             raise SystemExit(f"msm kernels: window sum {w} at n={n} != the native Pippenger on "
@@ -1019,7 +1173,7 @@ def phase_msm_kernels(device, check_n: int, n: int, clock_hz: float) -> dict:
     del args, keys
     torch.cuda.empty_cache()
     return {"horner": {"max_abs_err": err["horner"], **stages["horner"]}, "stages": stages,
-            "scan_err": err["scan"]}
+            "scan_err": err["scan"], "canon_digits_err": err["canon_digits"]}
 
 
 def _collapsed(base_n: int, ints: list[int], q: int) -> list[int]:
@@ -1333,7 +1487,8 @@ def main() -> None:
                 "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
                 "library_ms": st["library_ms"], "launches_by_path": launches,
                 "timed_at": timed_at,
-                **{k: st[k] for k in ("main_shape", "msm_shape", "forms") if k in st}}
+                **{k: st[k] for k in ("main_shape", "msm_shape", "forms", "key_bits", "sort_ms")
+                   if k in st}}
 
     # K4 at the MSM's shape beside its commit-shape entry; its error covers both.
     msm_scan = msm_kernel_stats["stages"]["scan"]
@@ -1342,6 +1497,15 @@ def main() -> None:
     commit_kernel_stats["scan"]["msm_shape"] = {
         "n": MSM_N, "batch": 22, **{k: msm_scan[k] for k in (  # a batch row a window
             "ms", "plain_ms", "bound_ms", "bound_by", "forms")}}
+    # K3's window rows at the MSM's shape beside its commit-shape entry.
+    msm_digits = msm_kernel_stats["stages"]["canon_digits"]
+    commit_kernel_stats["canon_digits"]["max_abs_err"] = max(
+        commit_kernel_stats["canon_digits"]["max_abs_err"], msm_kernel_stats["canon_digits_err"])
+    commit_kernel_stats["canon_digits"]["sort_ms"]["msm"] = \
+        msm_kernel_stats["stages"]["sort"]["by_key_bits"]
+    commit_kernel_stats["canon_digits"]["msm_shape"] = {
+        "n": MSM_N, "window_rows": True, **{k: msm_digits[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}}
     msm_src = "vdf_tpu_torch/csrc/msm_kernels.cuh"
     kernels = [
         entry(name, "vdf_tpu_torch/csrc/minroot_kernels.cuh", replaces[name],

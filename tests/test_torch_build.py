@@ -89,7 +89,8 @@ def test_constants_header_matches_params():
         assert (-pow(P.modulus, -1, 1 << 32)) % (1 << 32) == (1 << 32) - 1
     assert _build.build_key() == _build.build_key()
     assert set(_build.LAUNCHERS) >= {"vdf_minroot_eval", "vdf_scan", "vdf_bucket", "vdf_horner"}
-    assert len(_build.LAUNCHERS["vdf_canon_digits"]) == 8  # the layout flag before the stream
+    # the layout flag and the key width before the stream
+    assert len(_build.LAUNCHERS["vdf_canon_digits"]) == 9
     # K5: sums, flags, three scratch buffers, carries, cols, batch, columns a thread;
     # K6: tails, tail_col, carries, scratch, out, cols, batch, chunk bits, threads.
     assert len(_build.LAUNCHERS["vdf_colscan"]) == 11 and len(_build.LAUNCHERS["vdf_bucket"]) == 11
@@ -290,11 +291,12 @@ def _bad_commit_calls():
         "digits_dtype": lambda: CK.canon_digits("Fq", s.to(torch.int64), keys.shape[1]),
         "digits_m_pad": lambda: CK.canon_digits("Fq", s, 3),
         "digits_rank": lambda: CK.canon_digits("Fq", s[0], keys.shape[1]),
+        "digits_key_bits": lambda: CK.canon_digits("Fq", s, keys.shape[1], key_bits=16),
         "mont_width": lambda: CK.canon_mont("Fp", gens[:, 0, :7].contiguous()),
         "gens_strided": lambda: CK.shift_gens("Fp", gens.transpose(0, 1)),
         "gens_field": lambda: CK.shift_gens("F17", gens),
         "scan_rows": lambda: CK.bucket_scan("Fp", table, keys, 5),
-        "scan_keys_dtype": lambda: CK.bucket_scan("Fp", table, keys.to(torch.int32), 4),
+        "scan_keys_dtype": lambda: CK.bucket_scan("Fp", table, keys.to(torch.int16), 4),
         "scan_not_tensor": lambda: CK.bucket_scan("Fp", table.numpy(), keys, 4),
         "colscan_flags": lambda: CK.column_carries("Fp", sums, flags[:, :1].contiguous()),
         "bucket_width": lambda: CK.bucket_sums("Fp", tails[:, :100].contiguous(),
@@ -308,7 +310,7 @@ def _bad_commit_calls():
 
 
 BAD_COMMIT_CALLS = [
-    "digits_dtype", "digits_m_pad", "digits_rank", "mont_width", "gens_strided", "gens_field",
+    "digits_dtype", "digits_m_pad", "digits_rank", "digits_key_bits", "mont_width", "gens_strided", "gens_field",
     "scan_rows", "scan_keys_dtype", "scan_not_tensor", "colscan_flags", "bucket_width",
     "bucket_device", "digits_rows_m_pad", "horner_windows", "horner_dtype",
 ]
@@ -398,7 +400,7 @@ def test_scan_and_horner_launchers_refuse_a_bad_form(cuda):
                torch.empty((k, cols, 3, 8), dtype=torch.int32, device=cuda),
                torch.empty((k, cols), dtype=torch.int32, device=cuda))
         err = lib.vdf_scan(0, table.data_ptr(), keys.data_ptr(), *(a.data_ptr() for a in out),
-                           m_pad, rows, cols, k, form, stream)
+                           m_pad, rows, cols, k, form, CK.key_bits_of(keys), stream)
         return err, out
 
     def horner(field):
@@ -418,3 +420,54 @@ def test_scan_and_horner_launchers_refuse_a_bad_form(cuda):
     err, out = horner(0)
     torch.cuda.synchronize()
     assert err == 0 and torch.equal(out, CK.horner_plain("Fp", window_sums))
+
+
+@pytest.mark.gpu
+def test_shift_gens_canon_digits_and_scan_launchers_refuse_bad_arguments(cuda):
+    """vdf_shift_gens takes form 0 (a thread a generator) or 1 (a group of 8
+    threads a generator), vdf_canon_digits and vdf_scan key width 32 or 64,
+    and vdf_canon_digits 32-bit keys only for rows of at most 2^20 items:
+    anything else is refused with cudaErrorInvalidValue before a launch, and
+    every good call launches and equals the plain version."""
+    invalid_value = 1  # cudaErrorInvalidValue
+    lib = _build.load_kernels().lib
+    gens, table, s, keys = commit_inputs("pallas", 6, 1, 5, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def shift(form):
+        out = torch.empty((CK.WINDOWS * 6, 3, 8), dtype=torch.int32, device=cuda)
+        return lib.vdf_shift_gens(0, gens.data_ptr(), out.data_ptr(), 6, form, stream), out
+
+    def digits(key_bits, n=6, count=6, m_pad=None):
+        m_pad = CK.WINDOWS * n if m_pad is None else m_pad
+        out = torch.empty((1, m_pad), dtype=CK.KEY_DTYPES.get(key_bits, torch.int64),
+                          device=cuda)
+        err = lib.vdf_canon_digits(1, s.data_ptr(), out.data_ptr(), n, count, m_pad, 0,
+                                   key_bits, stream)
+        return err, out
+
+    def scan(key_bits):
+        cols = keys.shape[1] // 5
+        out = (CK._identity_rows("Fp", (1, CK.NB), cuda),
+               torch.full((1, CK.NB), -1, dtype=torch.int32, device=cuda),
+               torch.empty((1, cols, 3, 8), dtype=torch.int32, device=cuda),
+               torch.empty((1, cols), dtype=torch.int32, device=cuda))
+        return lib.vdf_scan(0, table.data_ptr(), keys.data_ptr(), *(a.data_ptr() for a in out),
+                            keys.shape[1], 5, cols, 1, 0, key_bits, stream)
+
+    for form in (-1, 2):
+        assert shift(form)[0] == invalid_value, form
+    for key_bits in (0, 16, 63):
+        assert digits(key_bits)[0] == invalid_value, key_bits
+        assert scan(key_bits) == invalid_value, key_bits
+    too_many = CK.KEY32_ITEMS // CK.WINDOWS + 1  # W n > 2^20: no 32-bit keys
+    assert digits(32, n=too_many, count=0)[0] == invalid_value
+    for form in (0, 1):
+        err, out = shift(form)
+        torch.cuda.synchronize()
+        assert err == 0 and torch.equal(out, CK.shift_gens_plain("Fp", gens)), form
+    for key_bits in (32, 64):
+        err, out = digits(key_bits, m_pad=CK.WINDOWS * 6 + 3)
+        torch.cuda.synchronize()
+        want = CK.canon_digits_plain("Fq", s, CK.WINDOWS * 6 + 3, key_bits=key_bits)
+        assert err == 0 and torch.equal(out, want), key_bits

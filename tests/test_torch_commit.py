@@ -30,8 +30,10 @@ from vdf_tpu_torch.curves import (
     get_int_curve,
     stack_point,
 )
+from vdf_tpu_torch.curves import CURVES as CK_CURVES
 from vdf_tpu_torch.curves import kernels as CK
-from vdf_tpu_torch.curves.bucket_msm import layout
+from vdf_tpu_torch.curves.bucket_msm import ROWS, commit_table, layout
+from vdf_tpu_torch.errors import KernelError
 from vdf_tpu_torch.native import msm_native_affine
 from vdf_tpu_torch.nova import commitment_key, derive_generators
 
@@ -152,11 +154,22 @@ def test_shifted_table_matches_intcurve_doubling_chain(curve_name):
                 p = ic.double(p)
 
 
+def key_of(digit: int, item: int, key_bits: int) -> int:
+    """K3's key of (digit, item): int64 digit << 32 | item, or the int32
+    ((digit << 20) | item) ^ 2^31 as a signed value."""
+    if key_bits == 64:
+        return (digit << 32) | item
+    return ((digit << 20) | item) - (1 << 31)
+
+
+@pytest.mark.parametrize("key_bits", [32, 64])
 @pytest.mark.parametrize("curve_name", CURVES)
-def test_window_digits_match_ints(curve_name):
+def test_window_digits_match_ints(curve_name, key_bits):
     """K3 mode 0's plain version: digit w is bits [12 w, 12 w + 12) of the
-    canonical scalar; keys are digit << 32 | item, window-major, zero past
-    W n; any 256-bit limb pattern counts as its value mod q."""
+    canonical scalar; keys are the keys of (digit, item) in either width
+    (int64 digit << 32 | item; int32 ((digit << 20) | item) ^ 2^31),
+    window-major, the padding key past W n; any 256-bit limb pattern counts
+    as its value mod q."""
     c, n = get_curve(curve_name), 6
     q = c.scalar.params.modulus
     vals = random_scalars(curve_name, n, seed=41)
@@ -166,11 +179,13 @@ def test_window_digits_match_ints(curve_name):
     vals[2] = ((1 << 256) - 1) * pow(c.scalar.params.r, -1, q) % q
     want = [[(v >> (12 * w)) & 0xFFF for w in range(CK.WINDOWS)] for v in vals]
     assert digits_of_scalars(curve_name, s).tolist() == want
-    _, m_pad = layout(n)
-    keys = CK.canon_digits(c.params.scalar_field, s[None], m_pad)[0].tolist()
-    assert keys[: CK.WINDOWS * n] == [(want[i][w] << 32) | (w * n + i)
+    m_pad = layout(n)[1] + 3
+    keys = CK.canon_digits(c.params.scalar_field, s[None], m_pad, key_bits=key_bits)[0]
+    assert keys.dtype == (torch.int32 if key_bits == 32 else torch.int64)
+    keys = keys.tolist()
+    assert keys[: CK.WINDOWS * n] == [key_of(want[i][w], w * n + i, key_bits)
                                       for w in range(CK.WINDOWS) for i in range(n)]
-    assert keys[CK.WINDOWS * n :] == [0] * (m_pad - CK.WINDOWS * n)
+    assert keys[CK.WINDOWS * n :] == [key_of(0, 0, key_bits)] * (m_pad - CK.WINDOWS * n)
 
 
 @pytest.mark.parametrize("curve_name", CURVES)
@@ -188,3 +203,62 @@ def test_commit_matches_jax_commitment_key(curve_name):
     got = c.to_affine_ints(Point(*(v[None] for v in ck.commit(c.scalar.encode(vals, device="cpu")))))
     assert got == want
     assert got[0] is not None
+
+
+def test_key32_order_is_digit_item_order():
+    """Signed int32 order of the 32-bit keys == (digit, item) order, on
+    seeded random pairs and the corners (digit 0 and 4,095, item 0 and
+    2^20 - 1, the padding key (0, 0)), and key_digit / key_item give the
+    pairs back from either width."""
+    rng = np.random.default_rng(71)
+    digits = [0, 0, 4095, 4095, 0, 1, 4094] + rng.integers(0, 4096, size=500).tolist()
+    items = [0, (1 << 20) - 1, 0, (1 << 20) - 1, 1, 0, (1 << 20) - 1] + rng.integers(
+        0, 1 << 20, size=500).tolist()
+    d, i = torch.tensor(digits), torch.tensor(items)
+    k32, k64 = CK.make_keys(d, i, 32), CK.make_keys(d, i, 64)
+    assert k32.dtype == torch.int32 and int(k32[0]) == -(1 << 31)  # the padding key sorts first
+    order = sorted(range(len(digits)), key=lambda j: (digits[j], items[j]))
+    assert torch.sort(k32).indices.tolist() == order
+    assert torch.sort(k64).indices.tolist() == order
+    for k in (k32, k64):
+        assert CK.key_digit(k).tolist() == digits and CK.key_item(k).tolist() == items
+    assert CK.key_width(CK.KEY32_ITEMS) == 32 and CK.key_width(CK.KEY32_ITEMS + 1) == 64
+    with pytest.raises(KernelError):
+        CK.key_width(CK.KEY32_ITEMS + 1, 32)
+
+
+@pytest.mark.parametrize("curve_name", CURVES)
+def test_scan_plain_reads_both_key_widths(curve_name):
+    """K4's plain version on the 32-bit keys == on the same data's int64
+    keys, every output bit for bit (n = 40 with a run of equal scalars, K = 2,
+    rows = 7)."""
+    params = CK_CURVES[curve_name]
+    c, n, rows = get_curve(curve_name), 40, 7
+    vals = random_scalars(curve_name, 2 * n, seed=43)
+    vals[5:25] = [vals[5]] * 20
+    s = c.scalar.encode(vals, device="cpu").reshape(2, n, 8)
+    table = commitment_key(curve_name, n, device="cpu").table
+    _, m_pad = layout(n, rows)
+    out = []
+    for key_bits in (32, 64):
+        keys = CK.canon_digits(params.scalar_field, s, m_pad, key_bits=key_bits)
+        out.append(CK.bucket_scan(params.base_field, table, torch.sort(keys, -1).values, rows))
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    assert (out[0][1] >= 0).any()  # a run's head in an earlier column
+
+
+@pytest.mark.parametrize("curve_name", CURVES)
+def test_commit_same_limbs_in_both_key_widths(curve_name):
+    """A small K = 2 commit (n = 12) through commit_table, whose keys are
+    32-bit, == the same stages with the keys forced to int64, in projective
+    limbs."""
+    params = CK_CURVES[curve_name]
+    c, n = get_curve(curve_name), 12
+    s = c.scalar.encode(random_scalars(curve_name, 2 * n, seed=47), device="cpu").reshape(2, n, 8)
+    table = commitment_key(curve_name, n, device="cpu").table
+    got = commit_table(curve_name, table, s)
+    _, m_pad = layout(n)
+    keys = CK.canon_digits(params.scalar_field, s, m_pad, key_bits=64)
+    scan = CK.bucket_scan(params.base_field, table, torch.sort(keys, -1).values, ROWS)
+    carries = CK.column_carries(params.base_field, scan[2], scan[3])
+    assert torch.equal(got, CK.bucket_sums(params.base_field, scan[0], scan[1], carries))

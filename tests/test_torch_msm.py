@@ -19,8 +19,16 @@ from vdf_tpu.curves import get_curve as jax_get_curve
 from vdf_tpu.curves.msm import msm as jax_msm
 from vdf_tpu.native import msm_native as jax_msm_native
 from vdf_tpu_torch import interop
-from vdf_tpu_torch.curves import Point, get_curve, get_int_curve, hash_to_curve_ints, msm
+from vdf_tpu_torch.curves import (
+    Point,
+    get_curve,
+    get_int_curve,
+    hash_to_curve_ints,
+    msm,
+    stack_point,
+)
 from vdf_tpu_torch.curves import kernels as CK
+from vdf_tpu_torch.curves.bucket_msm import ROWS
 from vdf_tpu_torch.curves.msm import msm_layout
 from vdf_tpu_torch.native import msm_native_affine
 
@@ -126,10 +134,13 @@ def test_msm_matches_jax_msm(curve_name):
     assert got == want and got is not None
 
 
+@pytest.mark.parametrize("key_bits", [32, 64])
 @pytest.mark.parametrize("curve_name", CURVES)
-def test_window_row_keys(curve_name):
-    """K3's second layout: row w holds digit_w(s_i) << 32 | i for i < n and
-    0 (digit 0, item 0) beyond, for any 256-bit limb pattern."""
+def test_window_row_keys(curve_name, key_bits):
+    """K3's second layout: row w holds the key of (digit_w(s_i), i) for
+    i < n and the padding key (digit 0, item 0) beyond, for any 256-bit limb
+    pattern, in either width (int64 digit << 32 | i; int32
+    ((digit << 20) | i) ^ 2^31)."""
     c, n = get_curve(curve_name), 23
     q = c.scalar.params.modulus
     vals = random_scalars(curve_name, n, seed=41)
@@ -139,12 +150,18 @@ def test_window_row_keys(curve_name):
     vals[2] = ((1 << 256) - 1) * pow(c.scalar.params.r, -1, q) % q
     cols, m_pad = msm_layout(n)
     assert (cols, m_pad) == (2, 44) and msm_layout(1) == (1, 22) and msm_layout(22) == (1, 22)
-    keys = CK.canon_digits(c.params.scalar_field, s[None], m_pad, window_rows=True)
+    keys = CK.canon_digits(c.params.scalar_field, s[None], m_pad, window_rows=True,
+                           key_bits=key_bits)
     assert keys.shape == (1, CK.WINDOWS, m_pad)
+    assert keys.dtype == (torch.int32 if key_bits == 32 else torch.int64)
+
+    def key(digit, item):
+        return (digit << 32) | item if key_bits == 64 else ((digit << 20) | item) - (1 << 31)
+
     for w in range(CK.WINDOWS):
         row = keys[0, w].tolist()
-        assert row[:n] == [(((v >> (12 * w)) & 0xFFF) << 32) | i for i, v in enumerate(vals)]
-        assert row[n:] == [0] * (m_pad - n)
+        assert row[:n] == [key((v >> (12 * w)) & 0xFFF, i) for i, v in enumerate(vals)]
+        assert row[n:] == [key(0, 0)] * (m_pad - n)
 
 
 @pytest.mark.parametrize("curve_name", CURVES)
@@ -174,3 +191,21 @@ def test_horner_matches_intcurve(curve_name):
         assert got[b] == acc
         total = sum(k << (12 * w) for w, k in enumerate(ks[b * CK.WINDOWS : (b + 1) * CK.WINDOWS]))
         assert ic.to_affine(acc) == ic.to_affine(ic.scalar_mul(g, total))
+
+
+@pytest.mark.parametrize("curve_name", CURVES)
+def test_msm_same_limbs_in_both_key_widths(curve_name):
+    """msm at n = 50 (32-bit keys) == the same stages with the keys forced
+    to int64, in projective limbs."""
+    c = get_curve(curve_name)
+    bf, sf = c.params.base_field, c.params.scalar_field
+    n = 50
+    pts = c.from_affine_ints(hash_to_curve_ints(curve_name, n, domain=b"vdf_tpu/t"), device="cpu")
+    s = c.scalar.encode(random_scalars(curve_name, n, seed=53), device="cpu")
+    got = msm(c, pts, s)
+    _, m_pad = msm_layout(n)
+    keys = CK.canon_digits(sf, s[None], m_pad, window_rows=True, key_bits=64)[0]
+    scan = CK.bucket_scan(bf, stack_point(pts).contiguous(), torch.sort(keys, -1).values, ROWS)
+    sums = CK.bucket_sums(bf, scan[0], scan[1], CK.column_carries(bf, scan[2], scan[3]))
+    want = CK.horner(bf, sums[None])[0]
+    assert torch.equal(stack_point(got), want)

@@ -2,10 +2,10 @@
 
 With the CUDA qualifiers defined away and ``threadIdx``/``blockIdx``
 emulated, g++ compiles the very source nvcc builds for the card
-(``csrc/msm_kernels.cuh``, ``csrc/curve.cuh``).  K3, K7 and K4's thread
-form use no CUDA intrinsic: each grid runs thread by thread.  K5 and K6
-synchronise inside a block, and K4's group form and K9 inside a group of 8
-threads, so the source gives what a thread does between two barriers as
+(``csrc/msm_kernels.cuh``, ``csrc/curve.cuh``).  K3 and the thread forms of
+K7 and K4 use no CUDA intrinsic: each grid runs thread by thread.  K5 and K6
+synchronise inside a block, and the group forms of K7 and K4 and K9 inside a
+group of 8 threads, so the source gives what a thread does between two barriers as
 ``__device__`` functions on explicit buffers; the shim below calls them as
 ``csrc/msm.cu``'s kernels do, pass after pass, level after level, thread
 (or lane) after thread (the barriers, the vote and the copies through shared
@@ -75,11 +75,15 @@ static void grid(int64_t threads, int block, Body body) {
   }
 }
 
-extern "C" void host_canon_digits(int f, const uint32_t* s, int64_t* keys, int64_t n,
-                                  int64_t count, int64_t m_pad, int window_rows) {
-  grid(count, CBLOCK, [&] {
+// K3 mode 0 as vdf_canon_digits launches it: the grid covers the scalars and
+// the padding positions, whichever are more.
+extern "C" void host_canon_digits(int f, const uint32_t* s, void* keys, int64_t n,
+                                  int64_t count, int64_t m_pad, int window_rows, int key_bits) {
+  const int64_t span = window_rows ? n : WINDOWS * n;
+  const int64_t pads = count / n * (window_rows ? WINDOWS : 1) * (m_pad - span);
+  grid(count > pads ? count : pads, CBLOCK, [&] {
     (f ? canon_digits_kernel<1> : canon_digits_kernel<0>)(s, keys, n, count, m_pad,
-                                                          window_rows);
+                                                          window_rows, key_bits);
   });
 }
 
@@ -110,7 +114,8 @@ struct SerialLanes {
 
 // One add (op 0) or doubling (op 1) on the buffer of a group whose unused
 // slots hold a pattern nobody may read (grouped), or on one thread
-// (point_add, point_double); points as (3, 8) words.
+// (point_add, point_double; op 2: point_double_lazy, its result reduced
+// with canon); points as (3, 8) words.
 template <int K>
 static void point_op_host(const uint32_t* p, const uint32_t* q, uint32_t* r, int op, int grouped,
                           int reverse) {
@@ -133,7 +138,16 @@ static void point_op_host(const uint32_t* p, const uint32_t* q, uint32_t* r, int
     a.x[j] = p[j], a.y[j] = p[NL + j], a.z[j] = p[2 * NL + j];
     b.x[j] = q[j], b.y[j] = q[NL + j], b.z[j] = q[2 * NL + j];
   }
-  if (op == 0) point_add<K>(a, a, b); else point_double<K>(a, a);
+  if (op == 0) {
+    point_add<K>(a, a, b);
+  } else if (op == 1) {
+    point_double<K>(a, a);
+  } else {
+    point_double_lazy<K>(a, a);
+    canon<K>(a.x);
+    canon<K>(a.y);
+    canon<K>(a.z);
+  }
   for (int j = 0; j < NL; ++j) r[j] = a.x[j], r[NL + j] = a.y[j], r[2 * NL + j] = a.z[j];
 }
 
@@ -172,18 +186,37 @@ extern "C" void host_canon_mont(int f, const uint32_t* in, uint32_t* out, int64_
   grid(count, CBLOCK, [&] { (f ? canon_mont_kernel<1> : canon_mont_kernel<0>)(in, out, count); });
 }
 
-extern "C" void host_shift_gens(int f, const uint32_t* gens, uint32_t* table, int64_t n) {
-  grid(n, PBLOCK, [&] { (f ? shift_gens_kernel<1> : shift_gens_kernel<0>)(gens, table, n); });
+template <int K>
+static void shift_gens_host(const uint32_t* gens, uint32_t* table, int64_t n, int form,
+                            int reverse) {
+  if (form == 0) {
+    grid(n, PBLOCK, [&] { shift_gens_kernel<K>(gens, table, n); });
+    return;
+  }
+  std::vector<U4> buf(GROUP_WORDS / 4);
+  for (int64_t i = 0; i < n; ++i) {
+    SerialLanes L;
+    L.reverse = reverse != 0;
+    shift_gens_walk<K>(L, reinterpret_cast<uint32_t*>(buf.data()), gens, table, n, i);
+  }
+}
+
+// K7 as vdf_shift_gens launches it: form 0, the thread form (thread after
+// thread); form 1, the group form (a group a generator, its lanes one after
+// another).
+extern "C" void host_shift_gens(int f, const uint32_t* gens, uint32_t* table, int64_t n,
+                                int form, int reverse) {
+  (f ? shift_gens_host<1> : shift_gens_host<0>)(gens, table, n, form, reverse);
 }
 
 template <int K>
-static void scan_host(const uint32_t* table, const int64_t* keys, uint32_t* tails,
+static void scan_host(const uint32_t* table, const void* keys, uint32_t* tails,
                       int32_t* tail_col, uint32_t* sums, int32_t* flags, int64_t rows,
-                      int64_t cols, int64_t batch, int form, int reverse) {
+                      int64_t cols, int64_t batch, int form, int reverse, int key_bits) {
   const int64_t columns = batch * cols;
   if (form == 0) {
     grid(columns, PBLOCK, [&] {
-      scan_kernel<K>(table, keys, tails, tail_col, sums, flags, rows, cols, batch);
+      scan_kernel<K>(table, keys, tails, tail_col, sums, flags, rows, cols, batch, key_bits);
     });
     return;
   }
@@ -193,18 +226,18 @@ static void scan_host(const uint32_t* table, const int64_t* keys, uint32_t* tail
     SerialLanes L;
     L.reverse = reverse != 0;
     scan_group_walk<K>(L, reinterpret_cast<uint32_t*>(buf.data()), gkeys.data(), table, keys,
-                       tails, tail_col, sums, flags, rows, cols, g);
+                       key_bits, tails, tail_col, sums, flags, rows, cols, g);
   }
 }
 
 // K4 as vdf_scan in msm.cu launches it: form 0, the thread form (thread
 // after thread); form 1, the group form (a group a column, its lanes one
-// after another).
-extern "C" void host_scan(int f, const uint32_t* table, const int64_t* keys, uint32_t* tails,
+// after another); keys of key_bits 32 or 64.
+extern "C" void host_scan(int f, const uint32_t* table, const void* keys, uint32_t* tails,
                           int32_t* tail_col, uint32_t* sums, int32_t* flags, int64_t rows,
-                          int64_t cols, int64_t batch, int form, int reverse) {
+                          int64_t cols, int64_t batch, int form, int reverse, int key_bits) {
   (f ? scan_host<1> : scan_host<0>)(table, keys, tails, tail_col, sums, flags, rows, cols,
-                                    batch, form, reverse);
+                                    batch, form, reverse, key_bits);
 }
 
 // K5 as vdf_colscan in msm.cu launches it: what each thread does in each
@@ -336,13 +369,18 @@ class HostKernels:
     def _p(a):
         return ctypes.c_void_p(a.ctypes.data)
 
-    def canon_digits(self, field, scalars, m_pad, window_rows=False):
+    def canon_digits(self, field, scalars, m_pad, window_rows=False, key_bits=None):
+        """K3 mode 0 into keys filled with a pattern no key has: the kernel
+        writes every position, the padding too."""
         s = np.ascontiguousarray(scalars.numpy())
         k, n = s.shape[:2]
-        keys = np.zeros((k, K.WINDOWS, m_pad) if window_rows else (k, m_pad), dtype=np.int64)
+        bits = K.key_width(n if window_rows else K.WINDOWS * n, key_bits)
+        keys = np.full((k, K.WINDOWS, m_pad) if window_rows else (k, m_pad), 0x5A5A5A5A,
+                       dtype=np.int32 if bits == 32 else np.int64)
         self.lib.host_canon_digits(_build.FIELD_INDEX[field], self._p(s), self._p(keys),
                                    ctypes.c_int64(n), ctypes.c_int64(k * n),
-                                   ctypes.c_int64(m_pad), ctypes.c_int(int(window_rows)))
+                                   ctypes.c_int64(m_pad), ctypes.c_int(int(window_rows)),
+                                   ctypes.c_int(bits))
         return torch.from_numpy(keys)
 
     def horner(self, field, sums, reverse=False):
@@ -377,11 +415,13 @@ class HostKernels:
                                  ctypes.c_int64(v.shape[0]))
         return torch.from_numpy(out)
 
-    def shift_gens(self, field, gens):
+    def shift_gens(self, field, gens, form="thread", reverse=False):
+        """K7 in one of its forms (K.SHIFT_FORMS)."""
         g = np.ascontiguousarray(gens.numpy())
         table = np.empty((K.WINDOWS * g.shape[0], 3, 8), dtype=np.int32)
         self.lib.host_shift_gens(_build.FIELD_INDEX[field], self._p(g), self._p(table),
-                                 ctypes.c_int64(g.shape[0]))
+                                 ctypes.c_int64(g.shape[0]), ctypes.c_int(K.SHIFT_FORMS.index(form)),
+                                 ctypes.c_int(int(reverse)))
         return torch.from_numpy(table)
 
     def bucket_scan(self, field, table, keys, rows, form="thread", reverse=False):
@@ -397,7 +437,7 @@ class HostKernels:
                            self._p(tails), self._p(tail_col), self._p(sums), self._p(flags),
                            ctypes.c_int64(rows), ctypes.c_int64(cols), ctypes.c_int64(k),
                            ctypes.c_int(K.SCAN_FORMS.index(form)),
-                           ctypes.c_int(int(reverse)))
+                           ctypes.c_int(int(reverse)), ctypes.c_int(K.key_bits_of(keys)))
         return tuple(map(torch.from_numpy, (tails, tail_col, sums, flags)))
 
     def column_carries(self, field, sums, flags, per_thread=None):
@@ -497,9 +537,10 @@ def test_commit_kernel_bodies_match_plain(host, curve_name):
 
 @pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
 def test_msm_kernel_bodies_match_plain(host, curve_name):
-    """K3's window-row layout (n = 7 in rows of m_pad = 10: digit << 32 | i,
-    zero beyond n) and K9 (B = 3 rows of 22 window sums: table points, the
-    identity, an all-ones limb pattern) == plain, bit for bit."""
+    """K3's window-row layout (n = 7 in rows of m_pad = 10: the key of
+    (digit, i), the padding key (0, 0) beyond n) and K9 (B = 3 rows of 22
+    window sums: table points, the identity, an all-ones limb pattern) ==
+    plain, bit for bit."""
     params = CURVES[curve_name]
     bf, sf = params.base_field, params.scalar_field
     n, k, m_pad = 7, 2, 10
@@ -508,8 +549,9 @@ def test_msm_kernel_bodies_match_plain(host, curve_name):
     keys = host.canon_digits(sf, s, m_pad, window_rows=True)
     want = K.canon_digits_plain(sf, s, m_pad, window_rows=True)
     assert keys.shape == (k, K.WINDOWS, m_pad) and torch.equal(keys, want)
-    assert (keys[:, :, n:] == 0).all() and (keys[0, :, :n] & 0xFFFFFFFF).tolist() == [
-        list(range(n))] * K.WINDOWS
+    pad = keys[:, :, n:]
+    assert (K.key_digit(pad) == 0).all() and (K.key_item(pad) == 0).all()
+    assert K.key_item(keys[0, :, :n]).tolist() == [list(range(n))] * K.WINDOWS
 
     pts = hash_to_curve_ints(curve_name, 3, domain=b"vdf_tpu/t")
     gens = stack_point(get_curve(curve_name).from_affine_ints(pts, device="cpu")).contiguous()
@@ -783,6 +825,100 @@ def test_scan_bodies_match_plain_in_both_forms(host, curve_name, form, reverse, 
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     if shape == "long_run":  # some digit's run covers parts of three columns
-        d = (keys[0] >> 32).tolist()
+        d = K.key_digit(keys[0]).tolist()
         runs = [len(list(g)) for _, g in itertools.groupby(d)]
         assert max(runs) >= rows + 2 and (want[1] >= 0).any()
+
+
+# ---------------------------------------------------------------------
+# K7's two forms, the lazy doubling of its thread form, and K3's and K4's
+# two key widths
+# ---------------------------------------------------------------------
+
+
+def _plus_p(curve_name: str, limbs: torch.Tensor) -> torch.Tensor:
+    """(..., 8) canonical limbs -> the same residues as v + p (below 2p):
+    lazy, non-canonical representations."""
+    p = CURVES[curve_name].base_field
+    mod = FIELDS[p].modulus
+    vals = [int.from_bytes(r.numpy().astype("<u4").tobytes(), "little") + mod
+            for r in limbs.reshape(-1, 8)]
+    out = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), dtype="<u4")
+    return torch.from_numpy(out.view(np.int32).copy()).reshape(limbs.shape)
+
+
+@functools.cache
+def shift_case(curve_name: str, n: int):
+    """(generators (n, 3, 8), the plain table): points drawn from table
+    multiples (z != 1 on most), generator 1 in a non-canonical form (each
+    coordinate + p, which the kernels reduce on load)."""
+    bf = CURVES[curve_name].base_field
+    gens = _some_points(curve_name, n, seed=n + 2)
+    if n > 1:
+        gens[1] = _plus_p(curve_name, gens[1])
+    return gens, K.shift_gens_plain(bf, gens)
+
+
+@pytest.mark.parametrize("n", [1, 5, 66])
+@pytest.mark.parametrize("form, reverse", [("thread", False), ("group", False), ("group", True)],
+                         ids=["thread", "group", "group_reversed"])
+@pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
+def test_shift_gens_bodies_match_plain_in_both_forms(host, curve_name, form, reverse, n):
+    """K7 in each form (one thread a generator on the lazy 12-doubling
+    chain; a group of 8 lanes a generator on the group law, lanes in order
+    and reversed) == the plain table, bit for bit: every window canonical."""
+    gens, want = shift_case(curve_name, n)
+    got = host.shift_gens(CURVES[curve_name].base_field, gens, form=form, reverse=reverse)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("how", ["random", "identity", "lazy_input"])
+@pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
+def test_lazy_doubling_matches_point_double(host, curve_name, how):
+    """point_double_lazy, its result reduced, == point_double: on a point in
+    projective form, on the identity, and on the same point with every
+    coordinate given as its value + p (a lazy operand, below 2p)."""
+    bf = CURVES[curve_name].base_field
+    p = _some_points(curve_name, 1, seed=len(how))[0]
+    if how == "identity":
+        p = K._identity_rows(bf, (), "cpu")
+    want = host.point_op(bf, p, p, 1, grouped=False)
+    if how == "lazy_input":
+        p = _plus_p(curve_name, p)
+    assert torch.equal(host.point_op(bf, p, p, 2, grouped=False), want)
+
+
+@pytest.mark.parametrize("window_rows", [False, True], ids=["window_major", "window_rows"])
+@pytest.mark.parametrize("key_bits", [32, 64])
+@pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
+def test_canon_digits_bodies_match_plain_in_both_widths(host, curve_name, key_bits, window_rows):
+    """K3 mode 0 in each key width and layout == plain, bit for bit, with the
+    padding it writes (rows of m_pad = items + 5, keys filled with a pattern
+    beforehand; more padding positions than scalars in the window-row
+    layout)."""
+    sf = CURVES[curve_name].scalar_field
+    n, k = 3, 2
+    s = _scalars(curve_name, k, n + 1, seed=7)[:, 1:].contiguous()
+    s[1, 2] = -1
+    m_pad = (n if window_rows else K.WINDOWS * n) + 5
+    got = host.canon_digits(sf, s, m_pad, window_rows, key_bits)
+    want = K.canon_digits_plain(sf, s, m_pad, window_rows, key_bits)
+    assert got.dtype == K.KEY_DTYPES[key_bits] and torch.equal(got, want)
+    pad = got[..., m_pad - 5 :]
+    assert (K.key_digit(pad) == 0).all() and (K.key_item(pad) == 0).all()
+
+
+@pytest.mark.parametrize("form", ["thread", "group"])
+@pytest.mark.parametrize("curve_name", ["pallas", "vesta"])
+def test_scan_bodies_read_both_key_widths(host, curve_name, form):
+    """K4 in each form on int64 keys == the plain version on the same data's
+    32-bit keys (the run across three columns of scan_case), bit for bit."""
+    bf, sf = CURVES[curve_name].base_field, CURVES[curve_name].scalar_field
+    table, keys, rows = scan_case(curve_name, "long_run")
+    s = _scalars(curve_name, 1, 16, seed=3)
+    s[:] = s[0, 4]
+    keys64 = torch.sort(K.canon_digits_plain(sf, s, keys.shape[1], key_bits=64), -1).values
+    assert keys.dtype == torch.int32 and keys64.dtype == torch.int64
+    want = K.bucket_scan_plain(bf, table, keys, rows)
+    for g, w in zip(host.bucket_scan(bf, table, keys64, rows, form=form), want):
+        assert torch.equal(g, w)

@@ -204,13 +204,15 @@ def main() -> None:
                 runs.append(start.elapsed_time(end) / REPS)
         return statistics.median(runs), runs
 
+    # The body reads int64 keys digit << 32 | item: the pairs of K3's keys in that width.
     shapes = []
     for k in (1, 2):
         gens, _, _, _, sorted_keys = S._commit_inputs(curve_name, S.COMMIT_N, k, device)
-        shapes.append((f"commit n=2^14 K={k}", CK.shift_gens(bf, gens), sorted_keys, True))
+        shapes.append((f"commit n=2^14 K={k}", CK.shift_gens(bf, gens), S._keys64(sorted_keys),
+                       True))
     _, pts, scalars, _ = S._msm_inputs(curve_name, S.MSM_N, device)
     args, _ = S._msm_stage_args(curve_name, pts, scalars)
-    shapes.append(("msm n=2^20", pts, args["scan"][2], False))
+    shapes.append(("msm n=2^20", pts, S._keys64(args["scan"][2]), False))
 
     for shape, table, keys, with_cold in shapes:
         batch, m_pad = keys.shape

@@ -120,10 +120,10 @@ _L = ctypes.c_int64
 LAUNCHERS = {
     "vdf_minroot_eval": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P],
     "vdf_minroot_inverse": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P],
-    "vdf_canon_digits": [_I, _P, _P, _L, _L, _L, _I, _P],
+    "vdf_canon_digits": [_I, _P, _P, _L, _L, _L, _I, _I, _P],
     "vdf_canon_mont": [_I, _P, _P, _L, _P],
-    "vdf_shift_gens": [_I, _P, _P, _L, _P],
-    "vdf_scan": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _P],
+    "vdf_shift_gens": [_I, _P, _P, _L, _I, _P],
+    "vdf_scan": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
     "vdf_colscan": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P],
     "vdf_bucket": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P],
     "vdf_horner": [_I, _P, _P, _L, _P],

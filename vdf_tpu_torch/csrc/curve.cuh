@@ -112,6 +112,37 @@ __device__ __forceinline__ void point_double(Pt& r, const Pt& p) {
   add_mod<K>(r.x, xy, xy);  // X = 2 x y t0
 }
 
+// r = 2p as point_double, on lazy coordinates (below 2p (1 + 2^-100), the
+// bound of field.cuh's lazy products) in and out: the same residues, for
+// chains of doublings that end in canon() (K7's thread form).  The products
+// skip their last subtraction where a lazy result may follow; 3b z^2, 9b z^2,
+// 8 y^2 and 2 x y are small-constant multiplies, which take any 256-bit
+// operand and return it canonical; a lazy sum that feeds a product (a lazy
+// value plus a canonical one, < 3p) is brought below 2p by one conditional
+// subtraction; the difference y^2 - 9b z^2 is a lazy value minus a canonical
+// one.  r may alias p.
+template <int K>
+__device__ __forceinline__ void point_double_lazy(Pt& r, const Pt& p) {
+  uint32_t t0[NL], t1[NL], t2[NL], xy[NL], b3[NL], b9[NL], z8[NL], y3[NL];
+  mont_sqr_lazy<K>(t0, p.y);         // y^2
+  mont_mul_lazy<K>(t1, p.y, p.z);    // y z
+  mont_sqr_lazy<K>(t2, p.z);         // z^2
+  mont_mul_lazy<K>(xy, p.x, p.y);    // x y
+  mul_small<K>(b3, t2, VDF_B3);      // 3b z^2, canonical
+  mul_small<K>(b9, t2, 3 * VDF_B3);  // 9b z^2, canonical
+  mul_small<K>(z8, t0, 8);           // z3 = 8 y^2, canonical
+  mul_small<K>(xy, xy, 2);           // 2 x y, canonical
+  add_raw(y3, t0, b3);
+  cond_sub_p<K>(y3);                 // y3 = y^2 + 3b z^2
+  sub_mod<K>(t0, t0, b9);            // y^2 - 9b z^2
+  mont_mul<K>(t2, b3, z8);           // x3 = 3b z^2 z3, canonical
+  mont_mul_lazy<K>(r.z, t1, z8);     // Z = y z z3
+  mont_mul_lazy<K>(y3, t0, y3);
+  mont_mul_lazy<K>(r.x, xy, t0);     // X = 2 x y (y^2 - 9b z^2)
+  add_raw(r.y, y3, t2);
+  cond_sub_p<K>(r.y);                // Y = (y^2 - 9b z^2) y3 + x3
+}
+
 // ---------------------------------------------------------------------
 // The same add and doubling on a group of GROUP = 8 threads
 // ---------------------------------------------------------------------

@@ -44,9 +44,11 @@
 //                   operands and result below 2p (1 + 2^-100), no
 //                   subtraction: for chains that end in canon();
 //   add_raw(a, b)   a + b, no reduction: the caller keeps it < 2^256;
-//   cond_sub_p(v)   v < 2p -> v < p;
+//   cond_sub_p(v)   v < 2p -> v < p (a lazy value + a canonical one, < 3p,
+//                   -> below the lazy bound);
 //   canon(v)        any 256-bit v (< 4p) -> v < p;
-//   sub_mod(a, b)   a, b < p -> a - b mod p.
+//   sub_mod(a, b)   a, b < p -> a - b mod p (a lazy a and a canonical b:
+//                   a lazy value of the same residue).
 //
 // Carries.  Written as 64-bit C sums, every step of a carry pass compiled
 // to three SASS operations (IADD3, IADD3.X and a shift) and every wide
@@ -241,11 +243,12 @@ __device__ __forceinline__ void cond_neg_mod(uint32_t r[NL], const uint32_t a[NL
   for (int j = 0; j < NL; ++j) r[j] = neg ? n[j] : a[j];
 }
 
-// r = k a mod p for canonical a and a small k < 64 (the curve's 3b = 15, and
-// 2, 3, 8, 45 in the group law): the same residue as a Montgomery product by
-// k R mod p, so the same limbs, for 16 multiplies where that takes 88.
-// v = k a < 64 p < 2^261 has nine limbs; q = v >> 254 is floor(v / p) or
-// one more (p = 2^254 + c with c < 2^126), so v - max(q - 1, 0) p lies in
+// r = k a mod p for a small k < 64 (the curve's 3b = 15, and 2, 3, 8, 45 in
+// the group law) and any 256-bit a (a lazy value too): the same residue as a
+// Montgomery product by k R mod p, so for canonical a the same limbs, for 16
+// multiplies where that takes 88; r is canonical.  v = k a < 2^262 has nine
+// limbs; q = v >> 254 is floor(v / p) or one more (p = 2^254 + c with
+// c < 2^126, so v / 2^254 - v / p < 2^-120), so v - max(q - 1, 0) p lies in
 // [0, 2p) and fits in 256 bits: the low limbs of v and of that multiple of p
 // give it, and one conditional subtraction ends it.  r may alias a.
 template <int K>

@@ -22,18 +22,26 @@ inline dim3 grid_of(int64_t threads, int block) {
 
 inline bool bad_field(int field) { return field != 0 && field != 1; }
 
+inline bool bad_key_bits(int key_bits) { return key_bits != 32 && key_bits != 64; }
+
 }  // namespace
 
+// K3 mode 0: key_bits 32 (int32 keys; a row's items, W n or n, at most
+// KEY32_ITEMS) or 64 (int64 keys).  Writes every key of the batch * (W or 1)
+// rows of m_pad, the padding included.
 extern "C" int vdf_canon_digits(int field, const void* scalars, void* keys, int64_t n,
-                                int64_t count, int64_t m_pad, int window_rows,
+                                int64_t count, int64_t m_pad, int window_rows, int key_bits,
                                 void* stream) {
-  if (bad_field(field) || n <= 0 || count % n != 0 ||
-      m_pad < (window_rows ? n : vdf::WINDOWS * n))
+  const int64_t span = window_rows ? n : vdf::WINDOWS * n;  // items a key row
+  if (bad_field(field) || bad_key_bits(key_bits) || n <= 0 || count % n != 0 ||
+      m_pad < span || (key_bits == 32 && span > vdf::KEY32_ITEMS))
     return (int)cudaErrorInvalidValue;
   if (count == 0) return (int)cudaSuccess;
+  const int64_t pads = count / n * (window_rows ? vdf::WINDOWS : 1) * (m_pad - span);
   auto kernel = field == 0 ? vdf::canon_digits_kernel<0> : vdf::canon_digits_kernel<1>;
-  kernel<<<grid_of(count, vdf::CBLOCK), vdf::CBLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)scalars, (int64_t*)keys, n, count, m_pad, window_rows);
+  kernel<<<grid_of(count > pads ? count : pads, vdf::CBLOCK), vdf::CBLOCK, 0,
+           (cudaStream_t)stream>>>((const uint32_t*)scalars, keys, n, count, m_pad,
+                                   window_rows, key_bits);
   return (int)cudaGetLastError();
 }
 
@@ -47,37 +55,49 @@ extern "C" int vdf_canon_mont(int field, const void* in, void* out, int64_t coun
   return (int)cudaGetLastError();
 }
 
-extern "C" int vdf_shift_gens(int field, const void* gens, void* table, int64_t n,
+// K7 in one of its two forms (msm_kernels.cuh): form 0, one thread a
+// generator, or form 1, one group of GROUP threads a generator.
+extern "C" int vdf_shift_gens(int field, const void* gens, void* table, int64_t n, int form,
                               void* stream) {
-  if (bad_field(field)) return (int)cudaErrorInvalidValue;
+  if (bad_field(field) || (form != 0 && form != 1)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
-  auto kernel = field == 0 ? vdf::shift_gens_kernel<0> : vdf::shift_gens_kernel<1>;
-  kernel<<<grid_of(n, vdf::PBLOCK), vdf::PBLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)gens, (uint32_t*)table, n);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (form == 0) {
+    auto kernel = field == 0 ? vdf::shift_gens_kernel<0> : vdf::shift_gens_kernel<1>;
+    kernel<<<grid_of(n, vdf::PBLOCK), vdf::PBLOCK, 0, s>>>((const uint32_t*)gens,
+                                                          (uint32_t*)table, n);
+  } else {
+    auto kernel =
+        field == 0 ? vdf::shift_gens_group_kernel<0> : vdf::shift_gens_group_kernel<1>;
+    kernel<<<grid_of(n, vdf::SHIFT_GROUPS), vdf::PBLOCK, 0, s>>>((const uint32_t*)gens,
+                                                                (uint32_t*)table, n);
+  }
   return (int)cudaGetLastError();
 }
 
 // K4 in one of its two forms (msm_kernels.cuh): form 0, one thread a column,
-// or form 1, one group of GROUP threads a column (rows up to SCAN_MAX_ROWS).
+// or form 1, one group of GROUP threads a column (rows up to SCAN_MAX_ROWS),
+// on keys of key_bits 32 or 64 (K3's two widths).
 extern "C" int vdf_scan(int field, const void* table, const void* keys, void* tails,
                         void* tail_col, void* col_sums, void* col_flags, int64_t m_pad,
-                        int64_t rows, int64_t cols, int64_t batch, int form, void* stream) {
-  if (bad_field(field) || rows <= 0 || cols <= 0 || m_pad != rows * cols ||
-      !(form == 0 || (form == 1 && rows <= vdf::SCAN_MAX_ROWS)))
+                        int64_t rows, int64_t cols, int64_t batch, int form, int key_bits,
+                        void* stream) {
+  if (bad_field(field) || bad_key_bits(key_bits) || rows <= 0 || cols <= 0 ||
+      m_pad != rows * cols || !(form == 0 || (form == 1 && rows <= vdf::SCAN_MAX_ROWS)))
     return (int)cudaErrorInvalidValue;
   if (batch <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (form == 0) {
     auto kernel = field == 0 ? vdf::scan_kernel<0> : vdf::scan_kernel<1>;
     kernel<<<grid_of(batch * cols, vdf::PBLOCK), vdf::PBLOCK, 0, s>>>(
-        (const uint32_t*)table, (const int64_t*)keys, (uint32_t*)tails, (int32_t*)tail_col,
-        (uint32_t*)col_sums, (int32_t*)col_flags, rows, cols, batch);
+        (const uint32_t*)table, keys, (uint32_t*)tails, (int32_t*)tail_col,
+        (uint32_t*)col_sums, (int32_t*)col_flags, rows, cols, batch, key_bits);
   } else {
     auto kernel = field == 0 ? vdf::scan_group_kernel<0> : vdf::scan_group_kernel<1>;
     kernel<<<grid_of(batch * cols, vdf::SCAN_GROUPS), vdf::PBLOCK,
              (size_t)vdf::scan_group_shared_bytes(rows), s>>>(
-        (const uint32_t*)table, (const int64_t*)keys, (uint32_t*)tails, (int32_t*)tail_col,
-        (uint32_t*)col_sums, (int32_t*)col_flags, rows, cols, batch);
+        (const uint32_t*)table, keys, (uint32_t*)tails, (int32_t*)tail_col,
+        (uint32_t*)col_sums, (int32_t*)col_flags, rows, cols, batch, key_bits);
   }
   return (int)cudaGetLastError();
 }

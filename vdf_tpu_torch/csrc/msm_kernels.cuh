@@ -11,15 +11,20 @@
 // (:64-67); the layout below is the port's own.
 //
 //   K3  canon_digits_kernel   scalars -> canonical -> 22 window digits,
-//                             written as int64 sort keys digit << 32 | item
-//                             (replaces _canon_kernel, to_canonical mode),
-//                             in one of two layouts: window-major in one
-//                             row of W n items (the fixed-base commit), or
-//                             one row a window over the n unshifted points
-//                             (the variable-base MSM: each window is a
-//                             batch row of K4-K6).  canon_mont_kernel puts
-//                             canonical integers into Montgomery form (its
-//                             domain mode).  One thread a value.
+//                             written as sort keys of (digit, item): int32
+//                             ((digit << 20) | item) ^ 2^31 where a row's
+//                             items are below 2^20 (the JAX package's uint32
+//                             key), else int64 digit << 32 | item (replaces
+//                             _canon_kernel, to_canonical mode), in one of
+//                             two layouts: window-major in one row of W n
+//                             items (the fixed-base commit), or one row a
+//                             window over the n unshifted points (the
+//                             variable-base MSM: each window is a batch row
+//                             of K4-K6); the padding after a row's items
+//                             too, in the one launch.  canon_mont_kernel
+//                             puts canonical integers into Montgomery form
+//                             (its domain mode).  One thread a value, 16-byte
+//                             loads.  See the section's note.
 //   --  torch.sort of the keys (the JAX package sorts in XLA too).
 //   K4  scan_kernel,          the sorted items of a batch row are cut into
 //       scan_group_kernel     `cols` columns of `rows` consecutive
@@ -52,9 +57,12 @@
 //                             block's 227 KB of shared memory, so here they
 //                             stay in global memory, in the L2 cache).  See
 //                             the section's note.
-//   K7  shift_gens_kernel     table[w * n + i] = 2^(12 w) G_i: one thread a
-//                             generator, 12 doublings a window (replaces
-//                             _shift_gens_kernel).
+//   K7  shift_gens_kernel,    table[w * n + i] = 2^(12 w) G_i, 12 doublings
+//       shift_gens_group_kernel  a window, by one thread a generator on lazy
+//                             values (grids that fill the card) or by a
+//                             group of 8 threads on the group law (small
+//                             grids: the engine's key) (replaces
+//                             _shift_gens_kernel).  See the section's note.
 //   K9  horner_kernel         the variable-base MSM's last step: 22 window
 //                             sums S_w -> sum_w 2^(12 w) S_w, one group of
 //                             8 threads a batch row, from the top window
@@ -67,7 +75,7 @@
 // and K9 are bound by the latency of dependent 32x32->64-bit multiply
 // chains, not by memory: K4 does `rows` dependent adds a column, K6 34
 // operations (1 + 11 adds, then 11 doublings and 11 adds on one thread),
-// K7 264 doublings a thread, K9 264 doublings and 22 adds a batch row (its
+// K7 252 doublings a generator, K9 264 doublings and 22 adds a batch row (its
 // 2.2 KB of input are nothing; the chain cannot be cut, so a group of 8
 // threads runs each operation, which cuts its latency: curve.cuh).  K4 also
 // gathers a 96-byte record an add from a table of 34.6 to 100 MB, which its
@@ -82,16 +90,16 @@
 // kernel uses atomics: each add has a fixed order, so each kernel equals
 // its plain version (curves/kernels.py) bit for bit.
 //
-// tests/test_torch_msm_kernel_host.py compiles this file as host C++.  K3
-// and K7 use no CUDA intrinsic and run there thread by thread as they are.
-// K4-K6 and K9 synchronise inside a block or a group, so what a thread (or
-// a group's lane) does between two barriers is a __device__ function on
-// explicit buffers; the __global__ kernels that call them between barriers
-// are for nvcc alone (#ifdef __CUDACC__), and the host test calls the same
-// functions from loops of its own.  The grouped walks (K4's group form, K9)
-// are templates over their lanes: on the card each thread is a lane
-// (GroupLanes), on the host the test runs the lanes one after another at
-// each step.
+// tests/test_torch_msm_kernel_host.py compiles this file as host C++.  K3,
+// K7's thread form and K4's use no CUDA intrinsic and run there thread by
+// thread as they are.  K4-K6, K7's group form and K9 synchronise inside a
+// block or a group, so what a thread (or a group's lane) does between two
+// barriers is a __device__ function on explicit buffers; the __global__
+// kernels that call them between barriers are for nvcc alone (#ifdef
+// __CUDACC__), and the host test calls the same functions from loops of its
+// own.  The grouped walks (K4's and K7's group forms, K9) are templates over
+// their lanes: on the card each thread is a lane (GroupLanes), on the host
+// the test runs the lanes one after another at each step.
 
 #pragma once
 
@@ -107,8 +115,10 @@ constexpr int WINDOW_BITS = 12;
 constexpr int NB = 1 << WINDOW_BITS;  // buckets a batch row
 constexpr int PT = 3 * NL;            // u32 words a point
 constexpr int PBLOCK = 128;           // threads a block, point kernels
-constexpr int CBLOCK = 256;           // threads a block, K3
+constexpr int CBLOCK = 64;            // threads a block, K3: n = 2^14 scalars are 256 blocks
 
+// Point i of a (.., 3, 8) array, word by word: the kernels move points in
+// 16-byte pieces (load_pt4, store_pt4); the tools' scratch kernels use these.
 __device__ __forceinline__ void load_pt(Pt& p, const uint32_t* src, int64_t i) {
   const uint32_t* s = src + i * PT;
 #pragma unroll
@@ -151,91 +161,12 @@ __device__ __noinline__ void dbl_pt(Pt& r, const Pt& p) {
 }
 
 // ---------------------------------------------------------------------
-// K3: canonical digits (mode 0) and Montgomery domain (mode 1)
-// ---------------------------------------------------------------------
-
-// scalars (count, 8) Montgomery over field K (count = batch * n) -> keys.
-//   window_rows == 0: keys (batch, m_pad), m_pad >= W n,
-//     keys[k * m_pad + w * n + i] = digit_w(s) << 32 | (w * n + i);
-//   window_rows != 0: keys (batch, W, m_pad), m_pad >= n,
-//     keys[(k * W + w) * m_pad + i] = digit_w(s) << 32 | i.
-// Entries past the items stay as the caller filled them (0: digit 0, item 0).
-template <int K>
-__global__ void __launch_bounds__(CBLOCK)
-    canon_digits_kernel(const uint32_t* __restrict__ scalars, int64_t* __restrict__ keys,
-                        int64_t n, int64_t count, int64_t m_pad, int window_rows) {
-  const int64_t g = (int64_t)blockIdx.x * CBLOCK + threadIdx.x;
-  if (g >= count) return;
-  const int64_t k = g / n, i = g % n;
-  uint32_t v[NL], int_one[NL] = {1, 0, 0, 0, 0, 0, 0, 0};
-#pragma unroll
-  for (int j = 0; j < NL; ++j) v[j] = scalars[g * NL + j];
-  canon<K>(v);               // any 256-bit pattern -> < p
-  mont_mul<K>(v, v, int_one);  // v / R: the canonical integer
-  int64_t* row = keys + k * m_pad * (window_rows ? WINDOWS : 1);
-#pragma unroll
-  for (int w = 0; w < WINDOWS; ++w) {
-    const int bit = w * WINDOW_BITS, limb = bit >> 5, off = bit & 31;
-    uint32_t d = v[limb] >> off;
-    if (off > 32 - WINDOW_BITS && limb + 1 < NL) d |= v[limb + 1] << (32 - off);
-    d &= NB - 1;
-    if (window_rows) {
-      row[w * m_pad + i] = ((int64_t)d << 32) | i;
-    } else {
-      const int64_t item = w * n + i;
-      row[item] = ((int64_t)d << 32) | item;
-    }
-  }
-}
-
-// values (count, 8) integer limbs over field K -> their Montgomery form.
-template <int K>
-__global__ void __launch_bounds__(CBLOCK)
-    canon_mont_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                      int64_t count) {
-  const int64_t g = (int64_t)blockIdx.x * CBLOCK + threadIdx.x;
-  if (g >= count) return;
-  uint32_t v[NL];
-#pragma unroll
-  for (int j = 0; j < NL; ++j) v[j] = in[g * NL + j];
-  canon<K>(v);
-  uint32_t r2[NL];
-#pragma unroll
-  for (int j = 0; j < NL; ++j) r2[j] = mont_r2<K>(j);
-  mont_mul<K>(v, v, r2);
-#pragma unroll
-  for (int j = 0; j < NL; ++j) out[g * NL + j] = v[j];
-}
-
-// ---------------------------------------------------------------------
-// K7: the pre-shifted generator table
-// ---------------------------------------------------------------------
-
-template <int K>
-__global__ void __launch_bounds__(PBLOCK)
-    shift_gens_kernel(const uint32_t* __restrict__ gens, uint32_t* __restrict__ table,
-                      int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
-  if (i >= n) return;
-  Pt p;
-  load_pt(p, gens, i);
-  canon<K>(p.x);
-  canon<K>(p.y);
-  canon<K>(p.z);
-  for (int w = 0; w < WINDOWS; ++w) {
-    store_pt(table, w * n + i, p);
-    if (w + 1 == WINDOWS) break;
-#pragma unroll 1
-    for (int s = 0; s < WINDOW_BITS; ++s) dbl_pt<K>(p, p);
-  }
-}
-
-// ---------------------------------------------------------------------
-// 128-bit access to points, for K4-K6 and K9
+// 128-bit access to points and limbs
 // ---------------------------------------------------------------------
 
 // A point record is 96 bytes, six 16-byte pieces; records start on 16-byte
-// boundaries (torch allocations are 512-byte aligned).
+// boundaries (torch allocations are 512-byte aligned; the wrappers of K3
+// and K7, whose inputs come from callers, check theirs).
 constexpr int PIECES = PT / 4;  // 16-byte pieces a point
 static_assert(PIECES <= GROUP, "a group's lanes move a record a piece each");
 
@@ -277,6 +208,29 @@ __device__ __forceinline__ U4* pt_at(uint32_t* base, int64_t i) {
   return reinterpret_cast<U4*>(base + i * PT);
 }
 
+// Element i of a (.., 8) limb array, as two 16-byte pieces.
+__device__ __forceinline__ void load_limbs4(uint32_t v[NL], const uint32_t* src, int64_t i) {
+  const U4* s = reinterpret_cast<const U4*>(src + i * NL);
+  const U4 lo = s[0], hi = s[1];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[j] = lo.w[j];
+    v[4 + j] = hi.w[j];
+  }
+}
+
+__device__ __forceinline__ void store_limbs4(uint32_t* dst, int64_t i, const uint32_t v[NL]) {
+  U4 lo, hi;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    lo.w[j] = v[j];
+    hi.w[j] = v[4 + j];
+  }
+  U4* d = reinterpret_cast<U4*>(dst + i * NL);
+  d[0] = lo;
+  d[1] = hi;
+}
+
 #ifdef __CUDACC__
 // The lanes of a group on the card: each thread is one lane and runs its
 // own part of a step; sync() is the group's own __syncwarp.  The host test
@@ -303,12 +257,224 @@ struct GroupLanes {
 };
 #endif  // __CUDACC__
 
+// Lane l < PIECES: piece l of slot P to point i of dst; the last lane also
+// writes the int32 `value` to *flag when `write_flag`.
+__device__ __forceinline__ void group_store_lane(const uint32_t* buf, uint32_t* dst, int64_t i,
+                                                 int32_t* flag, int32_t value, bool write_flag,
+                                                 int lane) {
+  if (lane < PIECES) pt_at(dst, i)[lane] = reinterpret_cast<const U4*>(buf + GS_P * NL)[lane];
+  if (lane == GROUP - 1 && write_flag) *flag = value;
+}
+
+// ---------------------------------------------------------------------
+// K3: canonical digits (mode 0) and Montgomery domain (mode 1)
+// ---------------------------------------------------------------------
+//
+// Sort keys come in two widths with the same (digit, item) order:
+//   key_bits 64: int64 digit << 32 | item;
+//   key_bits 32: int32 ((digit << 20) | item) ^ 2^31, for items below 2^20:
+//     the JAX package's uint32 key digit << sh | item (pallas_msm.py:504-513)
+//     at sh = 20, in offset binary, so that signed int32 order (torch.sort's)
+//     is the order of the unsigned (digit << 20) | item, which is the int64
+//     keys' order.
+// The padding key (digit 0, item 0), 0 or INT32_MIN, sorts first.  K4 reads
+// either width through load_key, in the int64 form.
+//
+// What bounds K3: bytes.  It reads 32 bytes a scalar and writes 22 keys of 4
+// or 8 bytes; its one Montgomery product a scalar is small beside them.  So
+// a thread loads its scalar as two 16-byte pieces, consecutive threads write
+// consecutive keys of each window, the kernel writes every key, the padding
+// included (one launch a call, each key byte written once), and blocks of
+// CBLOCK threads spread the n = 2^14 scalars of a commit over every SM.
+
+constexpr int KEY_ITEM_BITS = 20;  // a 32-bit key's item field
+constexpr int64_t KEY32_ITEMS = (int64_t)1 << KEY_ITEM_BITS;  // items a 32-bit key row can hold
+
+__device__ __forceinline__ void store_key(void* keys, int64_t at, uint32_t digit, int64_t item,
+                                          int key_bits) {
+  if (key_bits == 32) {
+    const uint32_t v = ((digit << KEY_ITEM_BITS) | (uint32_t)item) ^ 0x80000000u;
+    reinterpret_cast<int32_t*>(keys)[at] = (int32_t)v;
+  } else {
+    reinterpret_cast<int64_t*>(keys)[at] = ((int64_t)digit << 32) | item;
+  }
+}
+
+// Key i in the int64 form digit << 32 | item, from either width.
+__device__ __forceinline__ int64_t load_key(const void* keys, int64_t i, int key_bits) {
+  if (key_bits == 32) {
+    const uint32_t v = (uint32_t)reinterpret_cast<const int32_t*>(keys)[i] ^ 0x80000000u;
+    return ((int64_t)(v >> KEY_ITEM_BITS) << 32) | (v & (uint32_t)(KEY32_ITEMS - 1));
+  }
+  return reinterpret_cast<const int64_t*>(keys)[i];
+}
+
+// scalars (count, 8) Montgomery over field K (count = batch * n) -> keys.
+//   window_rows == 0: key rows (batch, m_pad), m_pad >= W n, position
+//     w n + i holding (digit_w(s_i), item w n + i);
+//   window_rows != 0: key rows (batch, W, m_pad), m_pad >= n, position i of
+//     row w holding (digit_w(s_i), item i).
+// Every position past a row's items holds the padding key.  Thread g takes
+// scalar g (g < count) and padding position g of all the rows (g < key rows
+// times the padding a row); the grid covers the larger of the two.
+template <int K>
+__global__ void __launch_bounds__(CBLOCK)
+    canon_digits_kernel(const uint32_t* __restrict__ scalars, void* __restrict__ keys,
+                        int64_t n, int64_t count, int64_t m_pad, int window_rows,
+                        int key_bits) {
+  const int64_t g = (int64_t)blockIdx.x * CBLOCK + threadIdx.x;
+  const int64_t span = window_rows ? n : WINDOWS * n;  // items a key row
+  const int64_t pad = m_pad - span;
+  const int64_t key_rows = count / n * (window_rows ? WINDOWS : 1);
+  if (g < key_rows * pad) store_key(keys, g / pad * m_pad + span + g % pad, 0, 0, key_bits);
+  if (g >= count) return;
+  const int64_t k = g / n, i = g % n;
+  uint32_t v[NL], int_one[NL] = {1, 0, 0, 0, 0, 0, 0, 0};
+  load_limbs4(v, scalars, g);
+  canon<K>(v);               // any 256-bit pattern -> < p
+  mont_mul<K>(v, v, int_one);  // v / R: the canonical integer
+  const int64_t row = k * m_pad * (window_rows ? WINDOWS : 1);
+#pragma unroll
+  for (int w = 0; w < WINDOWS; ++w) {
+    const int bit = w * WINDOW_BITS, limb = bit >> 5, off = bit & 31;
+    uint32_t d = v[limb] >> off;
+    if (off > 32 - WINDOW_BITS && limb + 1 < NL) d |= v[limb + 1] << (32 - off);
+    d &= NB - 1;
+    if (window_rows) {
+      store_key(keys, row + w * m_pad + i, d, i, key_bits);
+    } else {
+      store_key(keys, row + w * n + i, d, w * n + i, key_bits);
+    }
+  }
+}
+
+// values (count, 8) integer limbs over field K -> their Montgomery form.
+template <int K>
+__global__ void __launch_bounds__(CBLOCK)
+    canon_mont_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                      int64_t count) {
+  const int64_t g = (int64_t)blockIdx.x * CBLOCK + threadIdx.x;
+  if (g >= count) return;
+  uint32_t v[NL];
+  load_limbs4(v, in, g);
+  canon<K>(v);
+  uint32_t r2[NL];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) r2[j] = mont_r2<K>(j);
+  mont_mul<K>(v, v, r2);
+  store_limbs4(out, g, v);
+}
+
+// ---------------------------------------------------------------------
+// K7: the pre-shifted generator table
+// ---------------------------------------------------------------------
+//
+// gens (n, 3, 8) -> table (W n, 3, 8), table[w n + i] = 2^(12 w) G_i: each
+// generator's coordinates reduced (canon), then 21 windows of 12 doublings,
+// every window stored canonical.  Replaces vdf_tpu/curves/pallas_msm.py:259
+// _shift_gens_kernel.  What bounds it: depth, 252 dependent doublings a
+// generator, on grids that are small beside the card (the engine's key of
+// 4,096 generators is 31 an SM, a commit's 16,384 is 124).  Two forms, the
+// same bits:
+//   thread form (shift_gens_kernel): one thread a generator; the 12
+//     doublings of a window are one out-of-line call (dbl_window) on lazy
+//     values (point_double_lazy: no last subtraction in the products,
+//     small-constant multiplies for 3b, 9b, 8 and 2), reduced once a window,
+//     where the table takes canonical limbs.  For grids that fill the
+//     schedulers.
+//   group form (shift_gens_group_kernel): one group of GROUP lanes a
+//     generator on the group law of curve.cuh, a doubling two products deep
+//     where one thread runs eight in a row.  For grids that leave the
+//     schedulers idle, where the chain's latency, not issue, is the bound.
+// The wrapper picks the form from the generators an SM (curves/kernels.py
+// shift_form).
+
+// The thread form's window: 12 lazy doublings of p, then p reduced.
+template <int K>
+__device__ __noinline__ void dbl_window(Pt& p) {
+#pragma unroll 1
+  for (int s = 0; s < WINDOW_BITS; ++s) point_double_lazy<K>(p, p);
+  canon<K>(p.x);
+  canon<K>(p.y);
+  canon<K>(p.z);
+}
+
+template <int K>
+__global__ void __launch_bounds__(PBLOCK)
+    shift_gens_kernel(const uint32_t* __restrict__ gens, uint32_t* __restrict__ table,
+                      int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
+  if (i >= n) return;
+  Pt p;
+  load_pt4(p, pt_at(gens, i));
+  canon<K>(p.x);
+  canon<K>(p.y);
+  canon<K>(p.z);
+  for (int w = 0; w < WINDOWS; ++w) {
+    store_pt4(pt_at(table, w * n + i), p);
+    if (w + 1 == WINDOWS) break;
+    dbl_window<K>(p);
+  }
+}
+
+constexpr int SHIFT_GROUPS = PBLOCK / GROUP;  // generators a block, group form
+
+// Lane l < PIECES: piece l of G_i into slot P; the zero slot.
+__device__ __forceinline__ void shift_stage_lane(uint32_t* buf, const uint32_t* gens, int64_t i,
+                                                 int lane) {
+  if (lane < PIECES) reinterpret_cast<U4*>(buf + GS_P * NL)[lane] = pt_at(gens, i)[lane];
+  for (int j = lane; j < NL; j += GROUP) buf[GS_ZERO * NL + j] = 0;
+}
+
+// Lane l < 3: coordinate l of slot P reduced below p.
+template <int K>
+__device__ __forceinline__ void shift_canon_lane(uint32_t* buf, int lane) {
+  if (lane < 3) canon<K>(buf + (GS_P + lane) * NL);
+}
+
+// A group's walk for generator i.  A window's store reads slot P before the
+// next doubling's first step; a doubling writes P only in its last step,
+// after its first sync, so no sync of its own follows the store.
+template <int K, class Lanes>
+__device__ __forceinline__ void shift_gens_walk(Lanes& L, uint32_t* buf, const uint32_t* gens,
+                                                uint32_t* table, int64_t n, int64_t i) {
+  L.each([&](int lane) { shift_stage_lane(buf, gens, i, lane); });
+  L.sync();
+  L.each([&](int lane) { shift_canon_lane<K>(buf, lane); });
+  L.sync();
+#pragma unroll 1
+  for (int w = 0; w < WINDOWS; ++w) {
+    L.each([&](int lane) { group_store_lane(buf, table, w * n + i, nullptr, 0, false, lane); });
+    if (w + 1 == WINDOWS) break;
+#pragma unroll 1
+    for (int s = 0; s < WINDOW_BITS; ++s) L.template dbl<K>(buf);
+  }
+}
+
+#ifdef __CUDACC__
+
+// A block of SHIFT_GROUPS groups.
+template <int K>
+__global__ void __launch_bounds__(PBLOCK)
+    shift_gens_group_kernel(const uint32_t* __restrict__ gens, uint32_t* __restrict__ table,
+                            int64_t n) {
+  __shared__ U4 bufs[SHIFT_GROUPS][GROUP_WORDS / 4];
+  const int group = threadIdx.x / GROUP;
+  const int64_t i = (int64_t)blockIdx.x * SHIFT_GROUPS + group;
+  if (i >= n) return;  // the whole group
+  GroupLanes L;
+  shift_gens_walk<K>(L, reinterpret_cast<uint32_t*>(bufs[group]), gens, table, n, i);
+}
+
+#endif  // __CUDACC__
+
 // ---------------------------------------------------------------------
 // K4: run sums down each column, tails written to their buckets
 // ---------------------------------------------------------------------
 //
-// keys (batch, m_pad) sorted; m_pad = cols * rows, so column g = k cols + c
-// of the flattened grid holds the flat keys g rows .. g rows + rows - 1.
+// keys (batch, m_pad) sorted, in either of K3's widths (key_bits, read
+// through load_key); m_pad = cols * rows, so column g = k cols + c of the
+// flattened grid holds the flat keys g rows .. g rows + rows - 1.
 // Outputs:
 //   tails (batch, NB, 3, 8)     sum of the run's items in the tail's column
 //                               (written for each digit that has a run,
@@ -345,23 +511,23 @@ constexpr int SCAN_MAX_ROWS = 64;  // the group form's limit: it stages rows + 2
 
 template <int K>
 __global__ void __launch_bounds__(PBLOCK)
-    scan_kernel(const uint32_t* __restrict__ table, const int64_t* __restrict__ keys,
+    scan_kernel(const uint32_t* __restrict__ table, const void* __restrict__ keys,
                 uint32_t* __restrict__ tails, int32_t* __restrict__ tail_col,
                 uint32_t* __restrict__ col_sums, int32_t* __restrict__ col_flags,
-                int64_t rows, int64_t cols, int64_t batch) {
+                int64_t rows, int64_t cols, int64_t batch, int key_bits) {
   const int64_t g = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
   if (g >= batch * cols) return;
   const int64_t k = g / cols, c = g % cols, m_pad = rows * cols;
-  const int64_t* row = keys + k * m_pad;
+  const int64_t row = k * m_pad;
   const int64_t pos0 = c * rows;
-  int64_t prev_d = pos0 > 0 ? row[pos0 - 1] >> 32 : -1;
-  int64_t key = row[pos0];
+  int64_t prev_d = pos0 > 0 ? load_key(keys, row + pos0 - 1, key_bits) >> 32 : -1;
+  int64_t key = load_key(keys, row + pos0, key_bits);
   bool seen_head = false;
   Pt acc, p;
 #pragma unroll 1
   for (int64_t r = 0; r < rows; ++r) {
     const int64_t pos = pos0 + r;
-    const int64_t next = pos + 1 < m_pad ? row[pos + 1] : -1;
+    const int64_t next = pos + 1 < m_pad ? load_key(keys, row + pos + 1, key_bits) : -1;
     const int64_t d = key >> 32;
     const bool head = d != prev_d;
     load_pt4(p, pt_at(table, key & 0xFFFFFFFF));
@@ -394,12 +560,13 @@ static_assert(scan_group_shared_bytes(SCAN_MAX_ROWS) <= 48 * 1024,
               "the group form's shared memory needs no opt-in");
 
 __device__ __forceinline__ void scan_group_setup_lane(int64_t* gkeys, uint32_t* buf,
-                                                      const int64_t* keys, int64_t rows,
-                                                      int64_t cols, int64_t g, int lane) {
+                                                      const void* keys, int key_bits,
+                                                      int64_t rows, int64_t cols, int64_t g,
+                                                      int lane) {
   const int64_t c = g % cols;
   for (int64_t i = lane; i < rows + 2; i += GROUP) {
     const bool outside = (i == 0 && c == 0) || (i == rows + 1 && c + 1 == cols);
-    gkeys[i] = outside ? -1 : keys[g * rows + i - 1];
+    gkeys[i] = outside ? -1 : load_key(keys, g * rows + i - 1, key_bits);
   }
   for (int j = lane; j < NL; j += GROUP) buf[GS_ZERO * NL + j] = 0;
 }
@@ -417,26 +584,20 @@ __device__ __forceinline__ void scan_group_fetch_lane(Lanes& L, uint32_t* buf,
   if (r + 1 < rows) L.pre(lane) = pt_at(table, gkeys[r + 2] & 0xFFFFFFFF)[lane];
 }
 
-// Lane l < PIECES: piece l of slot P to point i of dst; the last lane also
-// writes the int32 `value` to *flag when `write_flag`.
-__device__ __forceinline__ void group_store_lane(const uint32_t* buf, uint32_t* dst, int64_t i,
-                                                 int32_t* flag, int32_t value, bool write_flag,
-                                                 int lane) {
-  if (lane < PIECES) pt_at(dst, i)[lane] = reinterpret_cast<const U4*>(buf + GS_P * NL)[lane];
-  if (lane == GROUP - 1 && write_flag) *flag = value;
-}
-
 // A group's walk down column g.  `Lanes` runs a step on the group: on the
 // card each thread is one lane (GroupLanes); the host test runs the lanes
 // one after another.  Within a step no lane reads what another writes.
 template <int K, class Lanes>
 __device__ __forceinline__ void scan_group_walk(Lanes& L, uint32_t* buf, int64_t* gkeys,
-                                                const uint32_t* table, const int64_t* keys,
-                                                uint32_t* tails, int32_t* tail_col,
-                                                uint32_t* col_sums, int32_t* col_flags,
-                                                int64_t rows, int64_t cols, int64_t g) {
+                                                const uint32_t* table, const void* keys,
+                                                int key_bits, uint32_t* tails,
+                                                int32_t* tail_col, uint32_t* col_sums,
+                                                int32_t* col_flags, int64_t rows, int64_t cols,
+                                                int64_t g) {
   const int64_t k = g / cols, c = g % cols;
-  L.each([&](int lane) { scan_group_setup_lane(gkeys, buf, keys, rows, cols, g, lane); });
+  L.each([&](int lane) {
+    scan_group_setup_lane(gkeys, buf, keys, key_bits, rows, cols, g, lane);
+  });
   L.sync();
   L.each([&](int lane) {
     if (lane < PIECES) L.pre(lane) = pt_at(table, gkeys[1] & 0xFFFFFFFF)[lane];
@@ -473,10 +634,10 @@ extern __shared__ U4 scan_shared[];
 
 template <int K>
 __global__ void __launch_bounds__(PBLOCK)
-    scan_group_kernel(const uint32_t* __restrict__ table, const int64_t* __restrict__ keys,
+    scan_group_kernel(const uint32_t* __restrict__ table, const void* __restrict__ keys,
                       uint32_t* __restrict__ tails, int32_t* __restrict__ tail_col,
                       uint32_t* __restrict__ col_sums, int32_t* __restrict__ col_flags,
-                      int64_t rows, int64_t cols, int64_t batch) {
+                      int64_t rows, int64_t cols, int64_t batch, int key_bits) {
   const int group = threadIdx.x / GROUP;
   const int64_t g = (int64_t)blockIdx.x * SCAN_GROUPS + group;
   if (g >= batch * cols) return;  // the whole group: no lane of it waits below
@@ -485,8 +646,8 @@ __global__ void __launch_bounds__(PBLOCK)
                                               SCAN_GROUPS * GROUP_WORDS) +
                    group * (rows + 2);
   GroupLanes L;
-  scan_group_walk<K>(L, buf, gkeys, table, keys, tails, tail_col, col_sums, col_flags, rows,
-                     cols, g);
+  scan_group_walk<K>(L, buf, gkeys, table, keys, key_bits, tails, tail_col, col_sums,
+                     col_flags, rows, cols, g);
 }
 
 #endif  // __CUDACC__

@@ -8,7 +8,10 @@ scalars is ONE bucket accumulation over W n items, item ``w n + i``
 weighted by digit w of scalar i:
 
   1. K3 (``canon_digits``): Montgomery scalars -> canonical -> window
-     digits, as int64 sort keys ``digit << 32 | item``;
+     digits, as sort keys of (digit, item): int32, the JAX package's key
+     ``digit << 20 | item`` in offset binary, while the W n items fit 20
+     bits (n <= 47,662), int64 ``digit << 32 | item`` beyond
+     (``curves.kernels.key_width``);
   2. ``torch.sort`` of each batch row's keys;
   3. K4 (``bucket_scan``): run sums down ``cols`` columns of ``rows``
      sorted items, run tails written straight to their buckets;
@@ -16,8 +19,8 @@ weighted by digit w of scalar i:
   5. K6 (``bucket_sums``): bucket = tail + carry, then sum_b b B_b.
 
 Every step is a kernel launch or a torch op on the scalars' device: a
-commit does not synchronise with the host.  Keys are int64, so the
-JAX package's uint32 key-size limit does not apply.  A batch row is its
+commit does not synchronise with the host.  Past 2^20 items the keys are
+int64, so the JAX package's uint32 key-size limit does not apply.  A batch row is its
 own bucket set, so the K = 2 form (``commit_fixed_batch``) commits a
 strict witness and a cross term in one pass, as nova/ivc.py's fused fold
 does.
@@ -34,6 +37,7 @@ from .kernels import (
     bucket_sums,
     canon_digits,
     column_carries,
+    key_digit,
 )
 from .point import CURVES, Point, unstack_point
 
@@ -56,7 +60,7 @@ def digits_of_scalars(curve_name: str, scalars: torch.Tensor) -> torch.Tensor:
     s = scalars.reshape(-1, *scalars.shape[-2:]).contiguous()
     k, n = s.shape[:2]
     keys = canon_digits(CURVES[curve_name].scalar_field, s, WINDOWS * n)
-    digits = (keys >> 32).reshape(k, WINDOWS, n).transpose(1, 2)
+    digits = key_digit(keys).reshape(k, WINDOWS, n).transpose(1, 2)
     return digits.reshape(*scalars.shape[:-1], WINDOWS)
 
 

@@ -17,17 +17,25 @@ the kernels against them bit for bit.
 Layouts (int32 limb bit patterns, points stacked ``(..., 3, 8)``):
 
   canon_digits  K3 mode 0  scalars (K, n, 8) Montgomery over the scalar
-                           field -> keys (K, m_pad) int64, item
-                           m = w n + i holding digit_w(s_i) << 32 | m;
-                           items past W n are 0 (digit 0, item 0);
-                           with ``window_rows`` keys (K, W, m_pad), row w
-                           holding digit_w(s_i) << 32 | i for i < n and 0
-                           beyond: one batch row of K4-K6 a window, over
-                           the unshifted points (the variable-base MSM)
+                           field -> sort keys (K, m_pad), position
+                           m = w n + i holding (digit_w(s_i), item m);
+                           positions past W n hold the padding key (digit 0,
+                           item 0); with ``window_rows`` keys (K, W, m_pad),
+                           row w holding (digit_w(s_i), item i) for i < n
+                           and the padding key beyond: one batch row of
+                           K4-K6 a window, over the unshifted points (the
+                           variable-base MSM).  A key is int32
+                           ((digit << 20) | item) ^ 2^31 where a row's items
+                           are below 2^20 (KEY32_ITEMS; offset binary, so
+                           signed order is (digit, item) order), else int64
+                           digit << 32 | item (key_width); key_digit and
+                           key_item read either
   canon_mont    K3 mode 1  integers (N, 8) -> Montgomery form (N, 8)
   shift_gens    K7         generators (n, 3, 8) -> table (W n, 3, 8),
-                           item w n + i = 2^(12 w) G_i
-  bucket_scan   K4         table, sorted keys (K, m_pad), rows ->
+                           item w n + i = 2^(12 w) G_i; in one of two
+                           forms (shift_form), the same bits
+  bucket_scan   K4         table, sorted keys (K, m_pad) of either width,
+                           rows ->
                            tails (K, NB, 3, 8), tail_col (K, NB) int32,
                            col_sums (K, cols, 3, 8), col_flags (K, cols);
                            in one of two forms (scan_form), the same bits
@@ -72,6 +80,19 @@ SCAN_FORMS = ("thread", "group")
 # group form stages a column's keys in shared memory, SCAN_MAX_ROWS at most.
 SCAN_GROUP_BELOW = 96
 SCAN_MAX_ROWS = 64
+# K7's two forms, as vdf_shift_gens numbers them: one thread a generator (12
+# lazy doublings a call), or one group of 8 threads a generator on the group
+# law.  K7 takes the group form below SHIFT_GROUP_BELOW generators an SM: the
+# thread form's chain is as long at any n up to 124 an SM, the group form's
+# shorter chain costs more issue as n grows (tools/k7_sweep.py: the group
+# form 1.7x faster at 31 an SM, 1% slower at 62; they cross near 61).
+SHIFT_FORMS = ("thread", "group")
+SHIFT_GROUP_BELOW = 60
+# K3's keys: int32 while a key row's items fit the 20-bit item field, else
+# int64 (csrc/msm_kernels.cuh, K3's note).
+KEY_ITEM_BITS = 20
+KEY32_ITEMS = 1 << KEY_ITEM_BITS
+KEY_DTYPES = {32: torch.int32, 64: torch.int64}
 # K6: where its schedule is cut between the two launches (chunks of
 # 2^BUCKET_CHUNK_BITS buckets, a block of BUCKET_THREADS each), and the
 # points of scratch a batch row takes.  The cut changes no output bit.
@@ -149,6 +170,23 @@ def _field_index(field_name: str) -> int:
     return FIELD_INDEX[field_name]
 
 
+def _check_aligned(name: str, a: torch.Tensor) -> None:
+    """The kernels read and write rows of 32 or 96 bytes in 16-byte pieces."""
+    if a.data_ptr() % 16:
+        raise KernelError(f"{name} must start on a 16-byte boundary")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device) -> int:
+    """SMs of the CUDA ``device`` (the current one when it names no index)."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
 def _identity_rows(field_name: str, shape: tuple, device) -> torch.Tensor:
     """(*shape, 3, 8) filled with the identity (0 : 1 : 0)."""
     ident = torch.zeros(3, NLIMBS, dtype=torch.int32, device=device)
@@ -161,30 +199,74 @@ def _identity_rows(field_name: str, shape: tuple, device) -> torch.Tensor:
 # ---------------------------------------------------------------------
 
 
+def key_width(items: int, key_bits: int | None = None) -> int:
+    """K3's key width for rows of ``items`` items: ``key_bits`` (32 or 64)
+    if given, else 32 where the items fit 20 bits and 64 beyond."""
+    if key_bits is None:
+        return 32 if items <= KEY32_ITEMS else 64
+    if key_bits not in KEY_DTYPES or (key_bits == 32 and items > KEY32_ITEMS):
+        raise KernelError(f"no {key_bits}-bit keys for rows of {items} items")
+    return key_bits
+
+
+def key_bits_of(keys: torch.Tensor) -> int:
+    """The width of K3's keys in ``keys``, from its dtype."""
+    for bits, dtype in KEY_DTYPES.items():
+        if keys.dtype == dtype:
+            return bits
+    raise KernelError(f"keys: expected int32 or int64, got {keys.dtype}")
+
+
+def make_keys(digits: torch.Tensor, items: torch.Tensor, key_bits: int) -> torch.Tensor:
+    """Keys of (digit, item) pairs (int64 tensors) in ``key_bits``."""
+    if key_bits == 64:
+        return (digits << 32) | items
+    return (((digits << KEY_ITEM_BITS) | items) - (1 << 31)).to(torch.int32)
+
+
+def key_digit(keys: torch.Tensor) -> torch.Tensor:
+    """The digits of K3's keys of either width, int64."""
+    if key_bits_of(keys) == 64:
+        return keys >> 32
+    return (keys.to(torch.int64) + (1 << 31)) >> KEY_ITEM_BITS
+
+
+def key_item(keys: torch.Tensor) -> torch.Tensor:
+    """The items of K3's keys of either width, int64."""
+    if key_bits_of(keys) == 64:
+        return keys & 0xFFFFFFFF
+    return (keys.to(torch.int64) + (1 << 31)) & (KEY32_ITEMS - 1)
+
+
 def canon_digits(field_name: str, scalars: torch.Tensor, m_pad: int,
-                 window_rows: bool = False) -> torch.Tensor:
+                 window_rows: bool = False, key_bits: int | None = None) -> torch.Tensor:
     """K3 mode 0 (replaces pallas_msm._canon_kernel, to_canonical):
     scalars (K, n, 8) over ``field_name`` -> sort keys, (K, m_pad)
-    window-major, or (K, W, m_pad) with ``window_rows``."""
+    window-major, or (K, W, m_pad) with ``window_rows``; int32 or int64 as
+    key_width picks for the row's items (W n, or n with ``window_rows``)."""
     device = _check(field_name, scalars=scalars)
     _check_shape("scalars", scalars, torch.int32, (None, None, NLIMBS))
     k, n = scalars.shape[:2]
     least = n if window_rows else WINDOWS * n
     if n < 1 or m_pad < least:
         raise KernelError(f"need n >= 1 and m_pad >= {least}, got n={n}, m_pad={m_pad}")
+    bits = key_width(least, key_bits)
     if _device_kind(device) == "cpu":
-        return canon_digits_plain(field_name, scalars, m_pad, window_rows)
+        return canon_digits_plain(field_name, scalars, m_pad, window_rows, bits)
+    _check_aligned("scalars", scalars)
     shape = (k, WINDOWS, m_pad) if window_rows else (k, m_pad)
-    keys = torch.zeros(shape, dtype=torch.int64, device=device)
+    keys = torch.empty(shape, dtype=KEY_DTYPES[bits], device=device)
     if k:
         _launch("vdf_canon_digits", "canon_digits", device, _field_index(field_name),
-                scalars.data_ptr(), keys.data_ptr(), n, k * n, m_pad, int(window_rows))
+                scalars.data_ptr(), keys.data_ptr(), n, k * n, m_pad, int(window_rows), bits)
     return keys
 
 
 def canon_digits_plain(field_name: str, scalars: torch.Tensor, m_pad: int,
-                       window_rows: bool = False) -> torch.Tensor:
+                       window_rows: bool = False, key_bits: int | None = None) -> torch.Tensor:
     k, n = scalars.shape[:2]
+    span = n if window_rows else WINDOWS * n  # items a key row
+    bits = key_width(span, key_bits)
     limbs = get_field(field_name).from_mont(scalars.reshape(-1, NLIMBS))
     words = limbs.to(torch.int64) & 0xFFFFFFFF  # (k n, 8)
     digits = []
@@ -196,12 +278,9 @@ def canon_digits_plain(field_name: str, scalars: torch.Tensor, m_pad: int,
             d = d | (words[:, limb + 1] << (32 - off))
         digits.append(d & (NB - 1))
     d = torch.stack(digits).reshape(WINDOWS, k, n).transpose(0, 1)  # (k, W, n)
-    if window_rows:
-        keys = (d << 32) | torch.arange(n, dtype=torch.int64, device=scalars.device)
-        return torch.nn.functional.pad(keys, (0, m_pad - n))
-    items = torch.arange(WINDOWS * n, dtype=torch.int64, device=scalars.device)
-    keys = (d << 32).reshape(k, WINDOWS * n) | items
-    return torch.nn.functional.pad(keys, (0, m_pad - WINDOWS * n))
+    d = torch.nn.functional.pad(d if window_rows else d.reshape(k, span), (0, m_pad - span))
+    items = torch.arange(m_pad, dtype=torch.int64, device=scalars.device)
+    return make_keys(d, torch.where(items < span, items, 0), bits)  # padding: (0, 0)
 
 
 def canon_mont(field_name: str, values: torch.Tensor) -> torch.Tensor:
@@ -211,6 +290,7 @@ def canon_mont(field_name: str, values: torch.Tensor) -> torch.Tensor:
     _check_shape("values", values, torch.int32, (None, NLIMBS))
     if _device_kind(device) == "cpu":
         return canon_mont_plain(field_name, values)
+    _check_aligned("values", values)
     out = torch.empty_like(values)
     if values.shape[0]:
         _launch("vdf_canon_mont", "canon_mont", device, _field_index(field_name),
@@ -227,18 +307,28 @@ def canon_mont_plain(field_name: str, values: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------
 
 
+def shift_form(n: int, device) -> str:
+    """K7's form for ``n`` generators on the CUDA ``device``: "group" where
+    they give each SM fewer than SHIFT_GROUP_BELOW (the engine's key of
+    4,096), else "thread"."""
+    return "group" if n < SHIFT_GROUP_BELOW * _sms(device) else "thread"
+
+
 def shift_gens(field_name: str, gens: torch.Tensor) -> torch.Tensor:
     """K7 (replaces pallas_msm._shift_gens_kernel): generators (n, 3, 8)
-    over ``field_name`` -> (W n, 3, 8), item w n + i = 2^(12 w) G_i."""
+    over ``field_name`` -> (W n, 3, 8), item w n + i = 2^(12 w) G_i, the
+    same bits in either of K7's forms, which shift_form picks."""
     device = _check(field_name, gens=gens)
     _check_shape("gens", gens, torch.int32, (None, 3, NLIMBS))
     if _device_kind(device) == "cpu":
         return shift_gens_plain(field_name, gens)
+    _check_aligned("gens", gens)
     n = gens.shape[0]
     table = torch.empty((WINDOWS * n, 3, NLIMBS), dtype=torch.int32, device=device)
     if n:
+        form = SHIFT_FORMS.index(shift_form(n, device))
         _launch("vdf_shift_gens", "shift_gens", device, _field_index(field_name),
-                gens.data_ptr(), table.data_ptr(), n)
+                gens.data_ptr(), table.data_ptr(), n, form)
     return table
 
 
@@ -259,11 +349,6 @@ def shift_gens_plain(field_name: str, gens: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def scan_form(columns: int, rows: int, device) -> str:
     """K4's form for a grid of ``columns`` (batch * cols) of ``rows`` on the
     CUDA ``device``: "group" where the grid gives each SM fewer than
@@ -272,20 +357,19 @@ def scan_form(columns: int, rows: int, device) -> str:
     n = 2^14, 16,384 columns; the MSM's 1.05M)."""
     if rows > SCAN_MAX_ROWS:
         return "thread"
-    index = torch.device(device).index
-    sms = _sm_count(torch.cuda.current_device() if index is None else index)
-    return "group" if columns < SCAN_GROUP_BELOW * sms else "thread"
+    return "group" if columns < SCAN_GROUP_BELOW * _sms(device) else "thread"
 
 
 def bucket_scan(field_name: str, table: torch.Tensor, keys: torch.Tensor, rows: int):
     """K4 (replaces pallas_msm._scan_kernel and the tail compaction after
-    it).  ``keys`` (K, m_pad) sorted along each row, every item below
-    ``table``'s length (as canon_digits and a sort give them); m_pad =
-    cols * rows.  Returns (tails, tail_col, col_sums, col_flags), the same
-    bits in either of K4's forms, which scan_form picks."""
+    it).  ``keys`` (K, m_pad) of either of K3's widths, sorted along each
+    row, every item below ``table``'s length (as canon_digits and a sort
+    give them); m_pad = cols * rows.  Returns (tails, tail_col, col_sums,
+    col_flags), the same bits in either of K4's forms, which scan_form
+    picks, and from either key width."""
     device = _check(field_name, table=table, keys=keys)
     _check_shape("table", table, torch.int32, (None, 3, NLIMBS))
-    _check_shape("keys", keys, torch.int64, (None, None))
+    _check_shape("keys", keys, KEY_DTYPES[key_bits_of(keys)], (None, None))
     k, m_pad = keys.shape
     if rows < 1 or m_pad < 1 or m_pad % rows:
         raise KernelError(f"m_pad={m_pad} is not a positive multiple of rows={rows}")
@@ -300,7 +384,7 @@ def bucket_scan(field_name: str, table: torch.Tensor, keys: torch.Tensor, rows: 
         form = SCAN_FORMS.index(scan_form(k * cols, rows, device))
         _launch("vdf_scan", "scan", device, _field_index(field_name), table.data_ptr(),
                 keys.data_ptr(), tails.data_ptr(), tail_col.data_ptr(), col_sums.data_ptr(),
-                col_flags.data_ptr(), m_pad, rows, cols, k, form)
+                col_flags.data_ptr(), m_pad, rows, cols, k, form, key_bits_of(keys))
     return tails, tail_col, col_sums, col_flags
 
 
@@ -308,12 +392,12 @@ def bucket_scan_plain(field_name: str, table: torch.Tensor, keys: torch.Tensor, 
     k, m_pad = keys.shape
     cols = m_pad // rows
     device = keys.device
-    d = keys >> 32
+    d = key_digit(keys)
     edge = torch.full((k, 1), -1, dtype=torch.int64, device=device)
     heads = (d != torch.cat([edge, d[:, :-1]], 1)).reshape(k, cols, rows)
     is_tail = ((d != torch.cat([d[:, 1:], edge], 1)) & (d != 0)).reshape(k, cols, rows)
     d = d.reshape(k, cols, rows)
-    pts = table[(keys & 0xFFFFFFFF).reshape(k, cols, rows)]  # (k, cols, rows, 3, 8)
+    pts = table[key_item(keys).reshape(k, cols, rows)]  # (k, cols, rows, 3, 8)
     # Tails scatter into NB + 1 rows a batch row; row NB takes the rest.
     tails = _identity_rows(field_name, (k, NB + 1), device).reshape(-1, 3, NLIMBS)
     tail_col = torch.full((k * (NB + 1),), -1, dtype=torch.int32, device=device)

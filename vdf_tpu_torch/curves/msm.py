@@ -6,7 +6,9 @@ of 12 bits, and each window is one batch row of the bucket accumulation
 over the n unshifted points:
 
   1. K3 (``canon_digits``, window rows): Montgomery scalars -> canonical ->
-     keys (22, m_pad), row w holding ``digit_w(s_i) << 32 | i``;
+     keys (22, m_pad), row w holding the key of (digit_w(s_i), item i):
+     int32 up to n = 2^20 (the JAX package's uint32 key ``digit << 20 | i``
+     in offset binary), int64 ``digit << 32 | i`` beyond;
   2. ``torch.sort`` along each row;
   3. K4 (``bucket_scan``) with the points as the table: run sums down
      ``cols = ceil(n / ROWS)`` columns of ``ROWS`` sorted items a window;
@@ -23,9 +25,9 @@ package switches between three (bit planes below 256 points, an XLA
 Pippenger, the Pallas pipeline from 1,024 points on a TPU), runs the
 windows in groups and limits n by its uint32 sort keys.  Those answer
 XLA's dispatch cost and the TPU's memory and do not carry over: here all
-22 windows run in one pass (at n = 2^20 the keys take 185 MB, the column
+22 windows run in one pass (at n = 2^20 the keys take 92 MB, the column
 summaries 100 MB, the carries as much, and K5's and K6's scratch 13 MB and
-26 MB), and the keys are int64.
+26 MB), and past 2^20 points the keys are int64.
 """
 
 from __future__ import annotations
