@@ -5,7 +5,8 @@
 
 Main paths: MinRoot over Fq, t = 2^16 on 8,192 lanes; fixed-base commits at
 n = 2^14; the variable-base MSM at n = 2^20; the single-curve Nova folding
-engine at t = 1000 iterations a step, 2 steps.
+engine at t = 1000 iterations a step, 2 steps; the two-curve Nova IVC at
+t = 32 iterations a step, 8 steps, keys of 2^14 on Pallas and Vesta.
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -88,7 +89,26 @@ Phases (any failure exits non-zero; nothing is caught):
  11. evidence the launch counters of K1, K3-K7 and K9 moved during
              phase 9's one msm at n = 2^20 and phase 10's set-up -> eval ->
              prove -> verify (each read before the phase's other checks; K9
-             runs on the msm path only).
+             runs on the msm path only);
+ 12. ivc     the statement and its proof, with no device argument anywhere:
+             Evaluation.eval with K1 on one lane over t * 8 rounds from an
+             xorshift start gives z0 (== Python-int MinRoot);
+             ivc_public_params(32) (shapes, device matrices, keys from the
+             host derivation phase 6 made, K7 tables: seconds printed apart);
+             RecursiveIVC and 7 prove_steps, each timed between two
+             synchronisations, proof(), ivc_verify True and z_N == the
+             start; the witness handles are CUDA tensors; wrong num_steps,
+             zn and z0, one changed limb of r_W_primary, one changed
+             l_u_secondary.X and a swapped commitment are rejected; the
+             native engine on the same (t, z0) gives, at 3 steps, the device
+             engine's proof field by field (instances, z_i, every witness
+             read back; that device run instrumented: each fold's parts
+             between synchronisations); then folds/s of both engines (median
+             of the 6 steps after the first, min and max), the device
+             engine's split by phase a step and a fold's parts, beside the
+             card's name and power limit; the launch
+             counters of K1 and K3-K7 moved between the eval and the end of
+             verify (read before the other checks).
 
 The last lines are a JSON object of per-kernel evidence, the card's name
 and power limit, and the contract line
@@ -122,6 +142,9 @@ MSM_BASE = 1024  # distinct base points of the MSM inputs, repeated to n
 REPEATS = 20  # launches of K4-K6 and K9 on the same inputs that must agree bit for bit
 ENGINE_T = 1000  # MinRoot iterations a Nova step (the reference sweep point)
 ENGINE_STEPS = 2  # Nova steps
+IVC_T = 32  # MinRoot iterations a step of the two-curve IVC (the bench IVC, bench.py:158)
+IVC_STEPS = 8  # its steps (bench.py:158): base step + 7 prove steps
+IVC_CHECK_STEPS = 3  # steps at which the device and native engines' proofs are compared
 
 # The card's limits for each kernel's bound (the least time it could take):
 # bytes over the memory rate, and 32-bit multiply-adds over the int32 instruction
@@ -175,6 +198,15 @@ def _cuda_ms(fn, args, reps: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return smi.stdout.strip().splitlines()[0]
 
 
 def _sm_clock_hz() -> float:
@@ -1437,6 +1469,273 @@ def phase_engine(t: int, steps: int) -> tuple[dict, dict]:
     return stats, launches
 
 
+
+def _median(xs):
+    ys = sorted(xs)
+    m = len(ys) // 2
+    return ys[m] if len(ys) % 2 else (ys[m - 1] + ys[m]) / 2
+
+
+def _prove_timed(pp, z0: list, steps: int, snapshot_at: int | None = None):
+    """RecursiveIVC(pp, z0) and steps - 1 prove_steps, each between two
+    synchronisations; the prover's phase split over every step after the
+    first.  Returns (prover, base s, [s a step], split, kernel launches a
+    prove step, proof at ``snapshot_at`` steps or None)."""
+    import torch
+
+    from vdf_tpu_torch import RecursiveIVC
+    from vdf_tpu_torch.curves import kernels as CK
+    from vdf_tpu_torch.fields import kernels as FK
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prover = RecursiveIVC(pp, z0)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    step_s, snap = [], None
+    before = {**FK.LAUNCHES, **CK.LAUNCHES}
+    for k in range(steps - 1):
+        if k == 1:  # the split covers the timed steps, after the first
+            prover.timer = type(prover.timer)(prover.timer.sync)
+        t0 = time.perf_counter()
+        prover.prove_step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if snapshot_at is not None and prover.i == snapshot_at:
+            snap = prover.proof()  # the native engine's proof() changes no prover state
+    per_step = {k: (v - before[k]) / (steps - 1) for k, v in {**FK.LAUNCHES,
+                                                             **CK.LAUNCHES}.items()}
+    timed = step_s[1:]
+    split = {name: secs / len(timed) for name, secs in prover.timer.totals.items()}
+    split["other"] = sum(timed) / len(timed) - sum(split.values())
+    return prover, base_s, step_s, split, per_step, snap
+
+
+# The device engine's fold, split: fold_cached's own parts and, inside the
+# fused pass, its four parts.  The seeding of the product cache (the first
+# primary fold) counts in "fold other".
+FOLD_PARTS = {"encode x, u, r": ("Field", "encode"), "fused pass": ("Side", "_fold_strict"),
+              "challenge": ("ivc", "fold_challenge"), "instance fold": ("Side", "fold_instance"),
+              "witness fold": ("Side", "_wfoldp")}
+FUSED_PARTS = {"lift (K3)": ("Side", "_lift"), "matvecs + cross term": ("Side", "_cross"),
+               "K = 2 commit": ("CommitmentKey", "commit_batch"),
+               "read + affine": ("Side", "_affine_of")}
+
+
+@contextlib.contextmanager
+def _fold_timers(acc: dict):
+    """While inside, each fold_cached call and, within it, each outermost
+    part of FOLD_PARTS and each outermost part of FUSED_PARTS inside the
+    fused pass run between two synchronisations and add their host seconds
+    to ``acc``.  The same functions called anywhere else run untimed."""
+    import torch
+
+    from vdf_tpu_torch.fields import Field
+    from vdf_tpu_torch.nova import CommitmentKey, ivc
+    from vdf_tpu_torch.nova.ivc import Side
+
+    owners = {"Field": Field, "Side": Side, "CommitmentKey": CommitmentKey, "ivc": ivc}
+    active = []  # the parts running now, outermost first
+    saved = []
+
+    def wrap(owner, name, part, counts):
+        fn = getattr(owner, name)
+
+        def timed(*args, _fn=fn, **kwargs):
+            if not counts():
+                return _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            active.append(part)
+            t0 = time.perf_counter()
+            try:
+                out = _fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            finally:
+                active.pop()
+            acc[part] = acc.get(part, 0.0) + time.perf_counter() - t0
+            return out
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, timed)
+
+    wrap(Side, "fold_cached", "fold", lambda: not active)
+    for part, (owner, name) in FOLD_PARTS.items():
+        wrap(owners[owner], name, part, lambda: active == ["fold"])
+    for part, (owner, name) in FUSED_PARTS.items():
+        wrap(owners[owner], name, part, lambda: active == ["fold", "fused pass"])
+    try:
+        yield
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def _rates(step_s: list) -> dict:
+    """folds/s (one prove step folds one instance on each curve; bench.py's
+    unit) over the timed steps, every step after the first."""
+    timed = step_s[1:]
+    return {"folds_per_s_median": 1 / _median(timed), "folds_per_s_min": 1 / max(timed),
+            "folds_per_s_max": 1 / min(timed), "step_s_median": _median(timed),
+            "timed_steps": len(timed), "first_step_s": step_s[0]}
+
+
+def phase_ivc(t: int, steps: int, check_steps: int, card: str) -> tuple[dict, dict]:
+    """The two-curve Nova IVC through its entry points with no device
+    argument anywhere: the statement's eval (K1, one lane, t * steps
+    rounds), ivc_public_params(t), RecursiveIVC and steps - 1 prove_steps,
+    proof(), ivc_verify; tamper cases; the native engine's proof on the same
+    (t, z0) equal instance for instance and witness for witness at
+    check_steps steps.  Returns stats and the launch counts of K1/K2 and
+    K3-K9 from the eval to the end of verify."""
+    import dataclasses
+
+    import torch
+
+    from vdf_tpu_torch import (
+        Evaluation,
+        IVCProof,
+        RecursiveIVC,
+        ivc_public_params,
+        ivc_verify,
+        pallas_vdf,
+    )
+    from vdf_tpu_torch.curves import kernels as CK
+    from vdf_tpu_torch.fields import kernels as FK
+    from vdf_tpu_torch.nova import pedersen
+    from vdf_tpu_torch.utils import TEST_SEED, XorShiftRng, field_random
+
+    vdf = pallas_vdf()
+    f = vdf.field
+    p = f.params.modulus
+    x0 = field_random(XorShiftRng(TEST_SEED), p)
+    start = [x0, 0, 1]
+    # Phase 6's keys share the host derivation (derive_generators, cached);
+    # their device form and K7 table are made again, inside this path.
+    pedersen._key.cache_clear()
+
+    FK.reset_launches()
+    CK.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s0 = vdf.state_from_ints([x0], [0], [1])
+    z0_t, _ = Evaluation.eval(vdf, s0, t * steps)
+    z0 = [f.decode(v)[0] for v in z0_t]
+    eval_s = time.perf_counter() - t0
+    if tuple(z0) != _oracle(p, f.params.inv_alpha, tuple(start), t * steps):
+        raise SystemExit("ivc: the statement's z0 differs from Python-int MinRoot")
+
+    setup = {}
+    t0 = time.perf_counter()
+    pp = ivc_public_params(t)
+    setup["shapes_s"] = time.perf_counter() - t0
+    for name, side in (("primary", pp.primary), ("secondary", pp.secondary)):
+        for part, get in (("dev_shape", lambda: side.dev_shape), ("key", lambda: side.ck),
+                          ("table", lambda: side.ck.table)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            get()
+            torch.cuda.synchronize()
+            setup[f"{name}_{part}_s"] = time.perf_counter() - t0
+    if pp.primary.ck.n != COMMIT_N or pp.secondary.ck.n != COMMIT_N:
+        raise SystemExit(f"ivc: keys of {pp.primary.ck.n} and {pp.secondary.ck.n}, not {COMMIT_N}")
+
+    prover, base_s, step_s, split, per_step, _ = _prove_timed(pp, z0, steps)
+    t0 = time.perf_counter()
+    proof = prover.proof()
+    ok = ivc_verify(pp, proof, steps, z0, start)
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    launches = {**FK.LAUNCHES, **CK.LAUNCHES}  # of eval, set-up, prove and verify alone
+    if not ok:
+        raise SystemExit("ivc: ivc_verify is False")
+    if proof.z_i != start:
+        raise SystemExit("ivc: the chain's z_N is not the statement's start")
+    handles = [getattr(proof, k) for k in ("r_W_primary", "r_E_primary", "r_W_secondary",
+                                           "r_E_secondary", "l_w_secondary")]
+    if not all(isinstance(h, torch.Tensor) and h.is_cuda for h in handles):
+        raise SystemExit("ivc: a witness handle of the device engine is not a CUDA tensor")
+    _log(f"ivc: t={t}, {steps} steps: primary {pp.primary.shape.num_cons} constraints, "
+         f"secondary {pp.secondary.shape.num_cons}, keys of {COMMIT_N}; proof verifies")
+
+    U = proof.r_U_primary
+    w_bad = proof.r_W_primary.clone()
+    w_bad[0, 0] ^= 1
+    x_bad = list(proof.l_u_secondary.X)
+    x_bad[1] ^= 1
+    tampered = {
+        "wrong num_steps": (proof, steps + 1, z0, start),
+        "wrong zn": (proof, steps, z0, [start[0] + 1, *start[1:]]),
+        "wrong z0": (proof, steps, [z0[0] + 1, *z0[1:]], start),
+        "one changed limb of r_W_primary": (
+            dataclasses.replace(proof, r_W_primary=w_bad), steps, z0, start),
+        "one changed l_u_secondary.X": (
+            dataclasses.replace(proof, l_u_secondary=dataclasses.replace(
+                proof.l_u_secondary, X=x_bad)), steps, z0, start),
+        "r_U_primary's comm_w and comm_e swapped": (
+            dataclasses.replace(proof, r_U_primary=dataclasses.replace(
+                U, comm_w=U.comm_e, comm_e=U.comm_w)), steps, z0, start),
+    }
+    for what, args in tampered.items():
+        if ivc_verify(pp, *args):
+            raise SystemExit(f"ivc: a proof with {what} verified")
+    _log(f"ivc: rejected {', '.join(tampered)}")
+
+    # The native engine on the same (t, z0), and the device engine again to
+    # check_steps: the same proof, instance for instance and witness for
+    # witness.  Its steps are timed too: the baseline.
+    pp_n = ivc_public_params(t, engine="native")
+    _, base_n_s, step_n_s, split_n, _, proof_n = _prove_timed(pp_n, z0, steps, check_steps)
+    # This run is instrumented (FOLD_PARTS): every fold's parts between two
+    # synchronisations.
+    fold_split: dict = {}
+    with _fold_timers(fold_split):
+        check = RecursiveIVC(pp, z0)
+        for _ in range(check_steps - 1):
+            check.prove_step()
+    proof_d = check.proof()
+    folds = 2 * (check_steps - 1)
+    fold_split = {k: v / folds for k, v in fold_split.items()}
+    fold_split["fold other"] = fold_split["fold"] - sum(fold_split[k] for k in FOLD_PARTS
+                                                        if k in fold_split)
+    fold_split["fused other"] = fold_split["fused pass"] - sum(fold_split[k] for k in FUSED_PARTS)
+    for fld in dataclasses.fields(IVCProof):
+        got, want = getattr(proof_d, fld.name), getattr(proof_n, fld.name)
+        if isinstance(got, torch.Tensor):
+            side = pp.primary if fld.name.endswith("primary") else pp.secondary
+            got = side.field.decode(got)
+        elif dataclasses.is_dataclass(got):
+            got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        if got != want:
+            raise SystemExit(f"ivc: {fld.name} of the device engine's {check_steps}-step proof "
+                             f"differs from the native engine's")
+    _log(f"ivc: the device and native engines' {check_steps}-step proofs are equal field by "
+         f"field (instances, z_i, every witness)")
+
+    for kname in ("minroot_eval", *COMMIT_KERNELS):
+        if launches[kname] <= 0:
+            raise SystemExit(f"evidence: kernel {kname} was not launched by the IVC main path")
+    stats = {"t": t, "steps": steps, "card": card,
+             "constraints": [pp.primary.shape.num_cons, pp.secondary.shape.num_cons],
+             "key_n": COMMIT_N, "eval_s": eval_s, "setup_s": setup, "base_step_s": base_s,
+             "device": _rates(step_s), "native": _rates(step_n_s),
+             "native_base_step_s": base_n_s, "step_s": step_s, "native_step_s": step_n_s,
+             "verify_s": verify_s, "phases_seconds_per_step": split,
+             "native_phases_seconds_per_step": split_n, "launches_per_prove_step": per_step,
+             "fold_split_s": fold_split}
+    dev, nat = stats["device"], stats["native"]
+    _log(f"ivc: device engine {dev['folds_per_s_median']:.3f} folds/s (median of "
+         f"{dev['timed_steps']} steps; min {dev['folds_per_s_min']:.3f}, max "
+         f"{dev['folds_per_s_max']:.3f}); native engine {nat['folds_per_s_median']:.3f} "
+         f"(min {nat['folds_per_s_min']:.3f}, max {nat['folds_per_s_max']:.3f}); {card}")
+    _log("ivc: phases_seconds_per_step " + json.dumps(split))
+    _log(f"ivc: a device fold's parts (s a fold, mean of the {folds} folds of the instrumented "
+         f"{check_steps}-step run) " + json.dumps(fold_split))
+    _log("ivc: " + json.dumps(stats))
+    _log(f"ivc: launches during the IVC main path (eval, set-up, {steps - 1} prove steps, "
+         f"proof, verify) {launches}")
+    return stats, launches
+
+
 def main() -> None:
     import torch
 
@@ -1447,6 +1746,7 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+    card = _card()
     clock_hz = _sm_clock_hz()
     _log(f"bounds: {SMS} SMs x {INT32_LANES} int32 lanes x {clock_hz / 1e6:.0f} MHz "
          f"(nvidia-smi clocks.max.sm), {HBM_BYTES_PER_S / 1e12} TB/s")
@@ -1464,6 +1764,7 @@ def main() -> None:
     msm_kernel_stats = phase_msm_kernels(device, MSM_CHECK_N, MSM_N, clock_hz)
     _, msm_launches = phase_msm(device, MSM_N, MSM_CHECK_N)
     _, engine_launches = phase_engine(ENGINE_T, ENGINE_STEPS)
+    _, ivc_launches = phase_ivc(IVC_T, IVC_STEPS, IVC_CHECK_STEPS, card)
 
     # Evidence: K1, K3-K7 and K9 were launched by the MSM and engine paths.
     moved = {k: msm_launches.get(k, 0) + engine_launches.get(k, 0) for k in engine_launches}
@@ -1509,26 +1810,24 @@ def main() -> None:
     msm_src = "vdf_tpu_torch/csrc/msm_kernels.cuh"
     kernels = [
         entry(name, "vdf_tpu_torch/csrc/minroot_kernels.cuh", replaces[name],
-              {"minroot": main_stats["launches"][name], "engine": engine_launches[name]},
+              {"minroot": main_stats["launches"][name], "engine": engine_launches[name],
+               "ivc": ivc_launches[name]},
               st, {"lanes": st["lanes"], "t": st["t"], "field": "Fq"})
         for name, st in kernel_stats.items()
     ] + [
         entry(name, msm_src, COMMIT_KERNELS[name][1],
               {"commit": commit_launches[name], "msm": msm_launches[name],
-               "engine": engine_launches[name]},
+               "engine": engine_launches[name], "ivc": ivc_launches[name]},
               st, {"n": COMMIT_N, "curve": "pallas", "batch": 1})
         for name, st in commit_kernel_stats.items()
     ] + [
         entry("horner", msm_src, "vdf_tpu/curves/pallas_msm.py:234",
-              {"msm": msm_launches["horner"], "engine": engine_launches["horner"]},
+              {"msm": msm_launches["horner"], "engine": engine_launches["horner"],
+               "ivc": ivc_launches["horner"]},
               msm_kernel_stats["horner"], {"batch": 1, "curve": "pallas"}),
     ]
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

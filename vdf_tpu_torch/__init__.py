@@ -12,7 +12,14 @@ reference.  This package imports neither jax nor vdf_tpu.  It holds:
   * the single-curve Nova folding engine: the Poseidon transcript
     (``poseidon``), R1CS constraint systems and the MinRoot circuit
     (``r1cs``, ``nova.circuit``), folding and the recursive proof
-    (``nova.nifs``, ``nova.snark``).
+    (``nova.nifs``, ``nova.snark``);
+  * the two-curve Nova IVC, the statement the repo exists to prove: the
+    augmented circuits and their gadgets (``nova.augmented``,
+    ``nova.gadgets``, ``r1cs.bits``) synthesized on host ints, and the
+    prover and O(1) verifier (``nova.ivc``: ``ivc_public_params``,
+    ``RecursiveIVC``, ``ivc_verify``), whose commits and cross terms run on
+    the card (``engine="device"``) or on the native C++ tier
+    (``engine="native"``).
 
 Every kernel is written by hand in CUDA C++ for sm_90a (csrc/) and built
 with nvcc at first use.  Top-level surface mirrors the reference's
@@ -39,9 +46,14 @@ from .errors import (  # noqa: F401
 )
 from .nova import (  # noqa: F401
     CommitmentKey,
+    IVCParams,
+    IVCProof,
     NovaVDFProof,
+    RecursiveIVC,
     commitment_key,
     eval_and_make_circuits,
+    ivc_public_params,
+    ivc_verify,
     public_params,
 )
 from .utils import TEST_SEED  # noqa: F401

@@ -260,6 +260,10 @@ class Field:
             c = self._encoded[key] = self.encode(key[1], ref.device)
         return c.expand_as(ref)
 
+    def zero_like(self, ref: torch.Tensor) -> torch.Tensor:
+        """Zero shaped and placed like ``ref`` (0 is 0 in Montgomery form)."""
+        return torch.zeros_like(ref)
+
     def neg(self, a: torch.Tensor) -> torch.Tensor:
         return from_digits(self.sub16(torch.zeros_like(to_digits(a)), self.canon16(to_digits(a))))
 
@@ -299,6 +303,16 @@ class Field:
         else:
             buf = b"".join(to_mont(int(v) % p).to_bytes(32, "little") for v in values)
             arr = np.frombuffer(buf, dtype="<u4").reshape(-1, NLIMBS)
+        return torch.from_numpy(arr.view(np.int32).copy()).to(resolve_device(device))
+
+    def encode_canonical(self, values, device=None) -> torch.Tensor:
+        """Ints in [0, 2^256) -> (n, 8) CANONICAL integer limbs (no Montgomery
+        factor) on ``device`` (None: the card), by ``to_bytes`` and
+        ``np.frombuffer``: no multiply on the host.  The device plane lifts
+        them with K3's domain mode (``curves.kernels.canon_mont``, which
+        reduces mod p), one launch in place of a bigint mulmod a value."""
+        buf = b"".join(int(v).to_bytes(32, "little") for v in values)
+        arr = np.frombuffer(buf, dtype="<u4").reshape(-1, NLIMBS)
         return torch.from_numpy(arr.view(np.int32).copy()).to(resolve_device(device))
 
     def decode(self, a: torch.Tensor):

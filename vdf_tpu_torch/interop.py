@@ -1,6 +1,6 @@
-"""Carry MinRoot state, curve points, commitment keys and Nova folding
-state (instances, witnesses, whole proofs) between the JAX package and the
-port.
+"""Carry MinRoot state, curve points, commitment keys, Nova folding state
+(instances, witnesses, whole proofs) and two-curve IVC proofs between the
+JAX package and the port.
 
 The JAX package holds a field element as ``(..., 17)`` uint32 radix-2^16
 limbs in Montgomery form with ``R = 2^272`` (possibly a lazy value below
@@ -169,3 +169,75 @@ def nova_proof_to_jax(curve_name: str, proof) -> dict:
         "W": relaxed_witness_to_jax(curve_name, snark.W),
         "comm_ts": [point_to_jax(curve_name, t) for t in proof.comm_ts],
     }
+
+
+# ---------------------------------------------------------------------
+# Two-curve IVC proofs.  Host instances are plain ints in both packages;
+# only the witness handles change form: int lists on either package's
+# "native" engine, JAX (n, 17) limb arrays or the port's (n, 8) Montgomery
+# tensors on the device planes.  The primary's witnesses are over Fq, the
+# secondary's over Fp.
+# ---------------------------------------------------------------------
+
+_IVC_WITNESSES = {"r_W_primary": "Fq", "r_E_primary": "Fq", "r_W_secondary": "Fp",
+                  "r_E_secondary": "Fp", "l_w_secondary": "Fp"}
+
+
+def _witness_ints(field_name: str, w) -> list[int]:
+    """A JAX witness handle (int list, or limb array) -> canonical ints."""
+    if isinstance(w, (list, tuple)):
+        return [int(v) for v in w]
+    return jax_limbs_to_ints(field_name, np.asarray(w))
+
+
+def ivc_proof_from_jax(proof, device=None, engine: str = "device"):
+    """A JAX ``IVCProof`` (read through its attributes) -> the port's: host
+    instances copied as ints; each witness handle as the port's ``engine``
+    holds it, Montgomery tensors on ``device`` (None: the card) or, with
+    ``engine="native"``, int lists."""
+    from .nova.ivc import ENGINES, HostInstance, HostRelaxedInstance, IVCProof
+
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+
+    def relaxed(U):
+        return HostRelaxedInstance(U.comm_w and tuple(map(int, U.comm_w)),
+                                   U.comm_e and tuple(map(int, U.comm_e)),
+                                   [int(v) for v in U.X], int(U.u))
+
+    def witness(name):
+        vals = _witness_ints(_IVC_WITNESSES[name], getattr(proof, name))
+        return vals if engine == "native" else get_field(_IVC_WITNESSES[name]).encode(vals, device)
+
+    u = proof.l_u_secondary
+    return IVCProof(
+        int(proof.i), [int(v) for v in proof.z0], [int(v) for v in proof.z_i],
+        relaxed(proof.r_U_primary), witness("r_W_primary"), witness("r_E_primary"),
+        relaxed(proof.r_U_secondary), witness("r_W_secondary"), witness("r_E_secondary"),
+        HostInstance(u.comm_w and tuple(map(int, u.comm_w)), [int(v) for v in u.X]),
+        witness("l_w_secondary"))
+
+
+def ivc_proof_to_jax(proof, engine: str = "native") -> dict:
+    """The port's ``IVCProof`` -> a dict of the JAX ``IVCProof``'s fields,
+    instances as dicts of its ``HostInstance``/``HostRelaxedInstance``
+    fields, for the caller to wrap; witness handles as int lists for the
+    JAX package's ``"native"`` engine or, with ``engine="device"``, as its
+    (n, 17) uint32 Montgomery limb arrays."""
+    from .nova.ivc import CanonicalWitness
+
+    def witness(name):
+        w = getattr(proof, name)
+        field_name = _IVC_WITNESSES[name]
+        if isinstance(w, CanonicalWitness):
+            raise ValueError(f"{name} is a deferred CanonicalWitness: take proof() first")
+        vals = [int(v) for v in w] if isinstance(w, list) else get_field(field_name).decode(w)
+        return vals if engine == "native" else ints_to_jax_limbs(field_name, vals)
+
+    out = {"i": proof.i, "z0": list(proof.z0), "z_i": list(proof.z_i)}
+    for name in ("r_U_primary", "r_U_secondary", "l_u_secondary"):
+        U = getattr(proof, name)
+        out[name] = {k: (list(v) if k == "X" else v) for k, v in vars(U).items()}
+    for name in _IVC_WITNESSES:
+        out[name] = witness(name)
+    return out

@@ -2,8 +2,17 @@
 
 ``pasta.cpp`` is a byte-identical copy of ``vdf_tpu/native/pasta.cpp``
 (the port cannot import ``vdf_tpu.native``: ``vdf_tpu`` pulls in jax).
-It is never on the commit path: tests and chip_smoke.py hold the CUDA
-commit against its CPU Pippenger, ``msm_native``.
+It is never on the device engine's path.  It serves two roles:
+
+  * the oracle: tests and chip_smoke.py hold the CUDA commit against its
+    CPU Pippenger, ``msm_native``;
+  * the host tier of the two-curve IVC (nova/ivc.py): the Pippenger of the
+    ``"native"`` engine's commits, and on either engine the witness
+    emitters of the host control plane, ``poseidon_permute_native`` (the
+    transcripts and the in-circuit sponge's S-box values) and
+    ``ec_fold_witness_native`` (the in-circuit instance fold's point
+    values).  ``minroot_eval_native``, ``minroot_inverse_native`` and
+    ``fold_points_native`` are carried for the modules still to port.
 
 The library builds at first use with g++ into
 ``vdf_tpu_torch/_build/native-<key>/`` (git-ignored), next to the
@@ -72,8 +81,39 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     u64p = ctypes.POINTER(ctypes.c_uint64)
     lib.msm_native.argtypes = [ctypes.c_int, u64p, u64p, ctypes.c_uint64, u64p]
-    lib.msm_native.restype = None
+    lib.minroot_eval_native.argtypes = [ctypes.c_int, u64p, ctypes.c_uint64]
+    lib.minroot_inverse_native.argtypes = [ctypes.c_int, u64p, ctypes.c_uint64]
+    lib.fold_points_native.argtypes = [
+        ctypes.c_int, u64p, u64p, u64p, u64p, ctypes.c_uint64, u64p, u64p,
+    ]
+    lib.poseidon_witness_native.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        u64p, u64p, u64p, u64p,
+    ]
+    lib.ec_fold_witness_native.argtypes = [ctypes.c_int, u64p, u64p, u64p, ctypes.c_int, u64p]
+    for fn in (lib.msm_native, lib.minroot_eval_native, lib.minroot_inverse_native,
+               lib.fold_points_native, lib.poseidon_witness_native, lib.ec_fold_witness_native):
+        fn.restype = None
     return lib
+
+
+def _to_u64(v: int, n: int = 4) -> list[int]:
+    return [(v >> (64 * k)) & ((1 << 64) - 1) for k in range(n)]
+
+
+def _u64_buffer(values) -> np.ndarray:
+    """Canonical ints -> flat (4 len(values),) uint64 buffer."""
+    return np.frombuffer(b"".join(int(v).to_bytes(32, "little") for v in values),
+                         dtype=np.uint64).copy()
+
+
+def _ints_of(buf: np.ndarray) -> list[int]:
+    raw = buf.tobytes()
+    return [int.from_bytes(raw[k : k + 32], "little") for k in range(0, len(raw), 32)]
+
+
+def _ptr(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
 
 
 def _from_u64(arr) -> int:
@@ -131,3 +171,83 @@ def msm_native_affine(curve_name: str, points: list[tuple[int, int]], scalars: l
     mod = (FP if curve_name == "pallas" else FQ).modulus
     zi = pow(z, -1, mod)
     return x * zi * zi % mod, y * zi * zi % mod * zi % mod
+
+
+def _minroot_native(fn_name: str, field_name: str, x: int, y: int, i: int, t: int):
+    st = _u64_buffer((x, y, i))
+    getattr(load(), fn_name)(1 if field_name == "Fq" else 0, _ptr(st), t)
+    return tuple(_ints_of(st))
+
+
+def minroot_eval_native(field_name: str, x: int, y: int, i: int, t: int):
+    """t forward MinRoot rounds over exact ints (canonical in and out)."""
+    return _minroot_native("minroot_eval_native", field_name, x, y, i, t)
+
+
+def minroot_inverse_native(field_name: str, x: int, y: int, i: int, t: int):
+    """t inverse MinRoot rounds over exact ints (canonical in and out)."""
+    return _minroot_native("minroot_inverse_native", field_name, x, y, i, t)
+
+
+@functools.lru_cache(maxsize=8)
+def _poseidon_packed(field_name: str, width: int):
+    from ..poseidon.int_poseidon import _constants
+    from ..poseidon.params import FULL_ROUNDS, partial_rounds
+
+    rc, mds = _constants(field_name, width)
+    r_p = partial_rounds(width)
+    half = FULL_ROUNDS // 2
+    n_sbox = half * width + r_p + (FULL_ROUNDS - half) * width
+    return (_u64_buffer([c for row in rc for c in row]),
+            _u64_buffer([c for row in mds for c in row]), half, r_p, FULL_ROUNDS, n_sbox)
+
+
+def poseidon_permute_native(field_name: str, state: list[int], emit_triples: bool = False):
+    """One Poseidon permutation over canonical ints (the same values as
+    poseidon/int_poseidon.py's Python rounds).  With ``emit_triples``, also
+    every S-box's (x^2, x^4, x^5) in the in-circuit sponge's allocation
+    order (nova/gadgets/sponge.py): the witness values of the augmented
+    circuit's transcript gadgets."""
+    width = len(state)
+    rc, mds, half, r_p, full, n_sbox = _poseidon_packed(field_name, width)
+    st = _u64_buffer(state)
+    tri = np.zeros(n_sbox * 12, dtype=np.uint64) if emit_triples else None
+    load().poseidon_witness_native(1 if field_name == "Fq" else 0, width, half, r_p, full,
+                                   _ptr(rc), _ptr(mds), _ptr(st),
+                                   _ptr(tri) if tri is not None else None)
+    out = _ints_of(st)
+    return (out, _ints_of(tri)) if emit_triples else out
+
+
+def ec_fold_witness_native(field_name: str, base_proj: tuple[int, int, int],
+                           pt_proj: tuple[int, int, int], r_bits_msb: list[int]) -> list[int]:
+    """Every witness value of one in-circuit scaled add (the instance fold of
+    nova/gadgets/instance.py: base + r pt by MSB-first double-and-add on the
+    complete projective formulas), in the gadget's allocation order: a flat
+    list of n_bits 23 + 12 + 4 canonical ints, the last 4 being (inf, zinv,
+    x, y) of the affine result."""
+    n_bits = len(r_bits_msb)
+    out = np.zeros((n_bits * 23 + 12 + 4) * 4, dtype=np.uint64)
+    load().ec_fold_witness_native(1 if field_name == "Fq" else 0, _ptr(_u64_buffer(base_proj)),
+                                  _ptr(_u64_buffer(pt_proj)),
+                                  _ptr(np.asarray(r_bits_msb, dtype=np.uint64)), n_bits,
+                                  _ptr(out))
+    return _ints_of(out)
+
+
+def fold_points_native(curve_name: str, pts_p: list[tuple[int, int]],
+                       pts_q: list[tuple[int, int]], a: int, b: int) -> list[tuple[int, int]]:
+    """out[i] = a P[i] + b Q[i], batched, affine canonical in and out;
+    raises if any result is the identity (it has no affine form)."""
+    n = len(pts_p)
+    if len(pts_q) != n:
+        raise ValueError(f"{n} points P and {len(pts_q)} points Q")
+    out = np.zeros(n * 8, dtype=np.uint64)
+    flags = np.zeros(n, dtype=np.uint64)
+    load().fold_points_native(1 if curve_name == "vesta" else 0, _ptr(pack_points_u64(pts_p)),
+                              _ptr(pack_points_u64(pts_q)), _ptr(_u64_buffer([a])),
+                              _ptr(_u64_buffer([b])), n, _ptr(out), _ptr(flags))
+    if flags.any():
+        raise ValueError("fold_points_native produced an identity point")
+    vals = _ints_of(out)
+    return [(vals[2 * i], vals[2 * i + 1]) for i in range(n)]

@@ -1,4 +1,16 @@
+from .augmented import AugmentedCircuit, AugmentedInputs, make_circuits
 from .circuit import InverseMinRootCircuit, inverse_round_gadget
+from .ivc import (
+    ENGINES,
+    CanonicalWitness,
+    HostInstance,
+    HostRelaxedInstance,
+    IVCParams,
+    IVCProof,
+    RecursiveIVC,
+    ivc_public_params,
+    ivc_verify,
+)
 from .nifs import NIFS, R1CSInstance, RelaxedInstance, RelaxedWitness
 from .pedersen import DEFAULT_LABEL, CommitmentKey, commitment_key, derive_generators
 from .r1cs_device import DeviceMatrix, DeviceShape
@@ -11,6 +23,18 @@ from .snark import (
 )
 
 __all__ = [
+    "AugmentedCircuit",
+    "AugmentedInputs",
+    "make_circuits",
+    "ENGINES",
+    "CanonicalWitness",
+    "HostInstance",
+    "HostRelaxedInstance",
+    "IVCParams",
+    "IVCProof",
+    "RecursiveIVC",
+    "ivc_public_params",
+    "ivc_verify",
     "DEFAULT_LABEL",
     "CommitmentKey",
     "commitment_key",

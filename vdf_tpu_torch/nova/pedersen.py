@@ -80,9 +80,15 @@ def scalar_bits(curve: Curve, s: torch.Tensor) -> torch.Tensor:
     return ((words[:, None] >> shifts) & 1).reshape(-1)
 
 
-@functools.lru_cache(maxsize=16)
 def derive_generators(curve_name: str, n: int, label: bytes = DEFAULT_LABEL):
-    """The n + 1 affine generator ints of a key (host, exact)."""
+    """The n + 1 affine generator ints of a key (host, exact), derived once a
+    process for each (curve, n, label) however the call spells its arguments:
+    the device keys and the IVC's native engine read the same derivation."""
+    return _derive(curve_name, n, label)
+
+
+@functools.lru_cache(maxsize=16)
+def _derive(curve_name: str, n: int, label: bytes):
     return tuple(hash_to_curve_ints(curve_name, n + 1, domain=label))
 
 

@@ -1,11 +1,16 @@
 """Host-integer Poseidon permutation + transcript (control-plane twin).
 
 A copy of ``vdf_tpu.poseidon.int_poseidon`` (the port cannot import that
-package: it pulls in jax), without its native C++ fast path.  The
-Fiat–Shamir transcript over Python ints must produce values identical to
-the tensor ``Transcript`` (poseidon/permutation.py); both share the
-constants from ``poseidon/params.py``, and tests/test_torch_poseidon.py
-locks the parity.
+package: it pulls in jax).  The Fiat–Shamir transcript over Python ints
+must produce values identical to the tensor ``Transcript``
+(poseidon/permutation.py) and to the in-circuit transcript gadget
+(nova/gadgets/sponge.py), because the two-curve IVC's host-derived
+challenges are re-derived inside the augmented circuit.  All three share
+the constants from ``poseidon/params.py``; tests/test_torch_poseidon.py
+and tests/test_torch_augmented.py lock the parity.
+
+The permutation runs in C++ (native/pasta.cpp) once that library builds
+and gives the Python rounds' values on a fixed state; otherwise in Python.
 """
 
 from __future__ import annotations
@@ -24,10 +29,33 @@ def _constants(field_name: str, width: int):
     return rc, mds
 
 
+@functools.cache
+def _native_permute():
+    """The C++ permutation when the native library builds and agrees with
+    the Python rounds on a fixed state; None otherwise.  The host
+    transcripts sit on every fold's critical path (nova/ivc.py
+    fold_challenge, state_hash)."""
+    try:
+        from ..native import poseidon_permute_native
+
+        got = poseidon_permute_native("Fq", [1, 2, 3, 4, 5])
+        want = _permute_ints_py("Fq", [1, 2, 3, 4, 5], 5)
+        return poseidon_permute_native if got == want else None
+    except Exception:
+        return None
+
+
 def permute_ints(field_name: str, state: list[int], width: int | None = None) -> list[int]:
     """One Poseidon permutation over canonical ints."""
     width = width or len(state)
     assert len(state) == width
+    native = _native_permute()
+    if native is not None:
+        return native(field_name, [int(v) for v in state])
+    return _permute_ints_py(field_name, state, width)
+
+
+def _permute_ints_py(field_name: str, state: list[int], width: int) -> list[int]:
     p = get_int_field(field_name).p
     rc, mds = _constants(field_name, width)
     r_p = partial_rounds(width)

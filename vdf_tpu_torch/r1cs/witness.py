@@ -1,10 +1,12 @@
 """Witness-generation constraint system (tensor-valued synthesis pass).
 
 Port of ``vdf_tpu.r1cs.witness``.  The same circuit code that built the
-shape runs again with concrete values: allocations carry ``(..., 8)``
-Montgomery tensors (batched over lanes), producing the witness vector W
-as a stacked tensor on the values' device.  The pass runs eagerly, one
-small torch op after another.
+shape runs again with concrete values.  Like the reference's, the pass is
+generic over the field's op surface: with ``fields.Field`` allocations
+carry ``(..., 8)`` Montgomery tensors (batched over lanes) and ``witness()``
+stacks them on the values' device, one small torch op after another; with
+``fields.IntField`` they are canonical Python ints (the two-curve IVC's
+augmented circuit, nova/augmented.py).
 
 ``check=True`` additionally verifies each enforced constraint against
 the values (TestConstraintSystem behavior, reference
@@ -83,7 +85,7 @@ class WitnessCS:
             acc = val if acc is None else f.add(acc, val)
         if acc is None:
             ref = self.aux[0] if self.aux else self.inputs[0]
-            return torch.zeros_like(ref)
+            return f.zero_like(ref)
         return acc
 
     def enforce(self, a, b, c, name: str = "") -> None:
@@ -92,7 +94,8 @@ class WitnessCS:
         f = self.field
         lhs = f.mul(self.eval_lc(a), self.eval_lc(b))
         rhs = self.eval_lc(c)
-        if not bool(f.eq(lhs, rhs).all()):
+        ok = f.eq(lhs, rhs)  # a bool over ints, a bool tensor over lanes
+        if not bool(ok.all() if isinstance(ok, torch.Tensor) else ok):
             self.failed.append("/".join(self._ns + [name]))
 
     def witness(self) -> torch.Tensor:
