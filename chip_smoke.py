@@ -6,7 +6,8 @@
 Main paths: MinRoot over Fq, t = 2^16 on 8,192 lanes; fixed-base commits at
 n = 2^14; the variable-base MSM at n = 2^20; the single-curve Nova folding
 engine at t = 1000 iterations a step, 2 steps; the two-curve Nova IVC at
-t = 32 iterations a step, 8 steps, keys of 2^14 on Pallas and Vesta.
+t = 32 iterations a step, 8 steps, keys of 2^14 on Pallas and Vesta, and
+its proof compressed (Spartan+IPA) and serialized.
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -86,6 +87,8 @@ Phases (any failure exits non-zero; nothing is caught):
              each step's witness and for W.e; U.comm_w == the native
              Pippenger on W.w; set-up, prove and verify s, and the prove
              step's split by part from a second, instrumented prove;
+             proof.compress(pp) -> CompressedVDFProof.verify True, with
+             vW + 1 False, compress and verify s;
  11. evidence the launch counters of K1, K3-K7 and K9 moved during
              phase 9's one msm at n = 2^20 and phase 10's set-up -> eval ->
              prove -> verify (each read before the phase's other checks; K9
@@ -108,7 +111,28 @@ Phases (any failure exits non-zero; nothing is caught):
              engine's split by phase a step and a fold's parts, beside the
              card's name and power limit; the launch
              counters of K1 and K3-K7 moved between the eval and the end of
-             verify (read before the other checks).
+             verify (read before the other checks);
+ 13. compress phase 12's device params and 8-step proof: each key with h
+             appended (K7 on h), ivc_compress and ivc_verify_compressed True,
+             each timed between two synchronisations; serialize_compressed
+             -> bytes -> deserialize_compressed -> verify True and the same
+             bytes again; the device engine's compress of the 3-step device
+             proof byte-equal to the native engine's compress of the 3-step
+             native proof, and as long as the 8-step one; wrong num_steps,
+             a wrong zn, a changed sumcheck message, vW + 1 and a swapped
+             IPA point rejected, a truncated blob refused; the launch
+             counters of K3-K6 and K9 moved during h tables -> compress ->
+             verify (read before the other checks); compress s, verify s,
+             bytes and the split of an instrumented compress by part
+             (ivc_compress's PhaseTimer spans: closing fold; a side's outer
+             sumcheck, gamma-matvec, inner sumcheck, two IPAs) beside the
+             card's name and power limit; then, on both curves at
+             compression's shapes, bit for bit: the key-with-h table against
+             K7's plain version over G ‖ h, a (2, 2^14 + 1) batch through
+             K3-K6 against their plain versions (the commits also against
+             commit_batch and the native Pippenger), and an msm over 29
+             points through K3 (window rows), K4-K6 and K9 against their
+             plain versions and the native Pippenger.
 
 The last lines are a JSON object of per-kernel evidence, the card's name
 and power limit, and the contract line
@@ -1338,7 +1362,10 @@ def phase_engine(t: int, steps: int) -> tuple[dict, dict]:
     device argument anywhere; returns stats and the launch counts of K1/K2
     and of K3-K9 from the set-up to the end of verify (K9 stays at 0: the
     engine's commits are fixed-base, and K9 runs here only in the msm
-    cross-check after the counts are read)."""
+    cross-check and the compressed proof's check after the counts are
+    read)."""
+    import dataclasses
+
     import torch
 
     from vdf_tpu_torch import (
@@ -1457,12 +1484,26 @@ def phase_engine(t: int, steps: int) -> tuple[dict, dict]:
     _log("engine: msm == ck.commit on each step's witness and on W.e; U.comm_w == native "
          "Pippenger on W.w")
 
+    # The final witness compressed away: a Spartan argument in its place.
+    cproof, compress_s = clock(lambda: proof.compress(pp))
+    cok, cverify_s = clock(lambda: cproof.verify(pp, steps, z0, zi))
+    if not cok:
+        raise SystemExit("engine: the compressed proof does not verify")
+    sp = cproof.spartan
+    if dataclasses.replace(cproof, spartan=sp._replace(vW=f.add(sp.vW, f.one()))).verify(
+            pp, steps, z0, zi):
+        raise SystemExit("engine: a compressed proof with vW + 1 verified")
+    _log(f"engine: proof.compress {compress_s:.3f} s, CompressedVDFProof.verify {cverify_s:.3f} "
+         f"s (True); with vW + 1 rejected")
+
     split = {k: v / steps for k, v in split.items()}
     split["other"] = split_prove_s / steps - sum(split.values())
     stats = {"t": t, "steps": steps, "constraints": shape.num_cons, "key_n": ck.n,
              "setup_s": shape_s + key_s + table_s, "shape_s": shape_s, "key_s": key_s,
              "table_s": table_s, "eval_s": eval_s, "prove_step_s": prove_s / steps,
-             "instrumented_prove_step_s": split_prove_s / steps, "prove_step_split_s": split, "verify_s": verify_s, "native_s": native_s}
+             "instrumented_prove_step_s": split_prove_s / steps, "prove_step_split_s": split,
+             "verify_s": verify_s, "native_s": native_s, "compress_s": compress_s,
+             "compressed_verify_s": cverify_s}
     _log("engine: " + json.dumps(stats))
     _log(f"engine: launches during the engine main path (set-up, eval, {steps} prove steps, "
          f"verify) {launches}")
@@ -1579,14 +1620,14 @@ def _rates(step_s: list) -> dict:
             "timed_steps": len(timed), "first_step_s": step_s[0]}
 
 
-def phase_ivc(t: int, steps: int, check_steps: int, card: str) -> tuple[dict, dict]:
+def phase_ivc(t: int, steps: int, check_steps: int, card: str) -> tuple[dict, dict, dict]:
     """The two-curve Nova IVC through its entry points with no device
     argument anywhere: the statement's eval (K1, one lane, t * steps
     rounds), ivc_public_params(t), RecursiveIVC and steps - 1 prove_steps,
     proof(), ivc_verify; tamper cases; the native engine's proof on the same
     (t, z0) equal instance for instance and witness for witness at
-    check_steps steps.  Returns stats and the launch counts of K1/K2 and
-    K3-K9 from the eval to the end of verify."""
+    check_steps steps.  Returns stats, the launch counts of K1/K2 and
+    K3-K9 from the eval to the end of verify, and the proofs for phase 13."""
     import dataclasses
 
     import torch
@@ -1733,7 +1774,213 @@ def phase_ivc(t: int, steps: int, check_steps: int, card: str) -> tuple[dict, di
     _log("ivc: " + json.dumps(stats))
     _log(f"ivc: launches during the IVC main path (eval, set-up, {steps - 1} prove steps, "
          f"proof, verify) {launches}")
-    return stats, launches
+    proofs = {"pp": pp, "proof": proof, "steps": steps, "z0": z0, "start": start,
+              "pp_native": pp_n, "check_native": proof_n, "check_device": proof_d,
+              "check_steps": check_steps}
+    return stats, launches, proofs
+
+
+def _compress_shape_checks(pp, err: dict) -> None:
+    """K3-K7 and K9 against their plain versions, bit for bit, at the shapes
+    compression gives them, on both curves: the table ``with_h`` builds (K7's
+    rows for G and for h, joined) against K7's plain version over G ‖ h; a
+    random (2, n + 1) batch through K3, the sort, K4, K5 and K6 on that table,
+    each stage against its plain version, the end equal to ``commit_batch``
+    and to the native Pippenger over G ‖ h; and an ``msm`` over 29 points
+    (an opening's check: Q and 14 rounds of L and R) through K3's window
+    rows, K4-K6 and K9, each against its plain version, the sum against the
+    native Pippenger."""
+    import torch
+
+    from vdf_tpu_torch.curves import (
+        CURVES,
+        get_curve,
+        hash_to_curve_ints,
+        msm,
+        stack_point,
+        unstack_point,
+    )
+    from vdf_tpu_torch.curves import kernels as CK
+    from vdf_tpu_torch.curves.bucket_msm import ROWS, layout
+    from vdf_tpu_torch.native import msm_native_affine
+    from vdf_tpu_torch.nova import derive_generators
+    from vdf_tpu_torch.utils import TEST_SEED, XorShiftRng
+
+    rng = XorShiftRng(TEST_SEED)
+    for side in (pp.primary, pp.secondary):
+        name, ck = side.curve_name, side.ck.with_h
+        c = get_curve(name)
+        bf, sf = CURVES[name].base_field, CURVES[name].scalar_field
+        n, q, device = ck.n, c.scalar.params.modulus, ck.gens.x.device
+        where = f"on {name} at the IPA's key of {n} generators (G ‖ h), K=2"
+        _require_same("shift_gens", where, ck.table,
+                      CK.shift_gens_plain(bf, stack_point(ck.gens).contiguous()), err)
+        vals = _xorshift_ints(2 * n, q, rng)
+        s = c.scalar.encode(vals, device).reshape(2, n, 8)
+        _, m_pad = layout(n)
+        keys = CK.canon_digits(sf, s, m_pad)
+        _require_same("canon_digits", where, keys, CK.canon_digits_plain(sf, s, m_pad), err)
+        scan_args = (bf, ck.table, torch.sort(keys, dim=-1).values, ROWS)
+        tails, tail_col, sums, flags = CK.bucket_scan(*scan_args)
+        _require_same("scan", where, (tails, tail_col, sums, flags),
+                      CK.bucket_scan_plain(*scan_args), err)
+        carries = CK.column_carries(bf, sums, flags)
+        _require_same("colscan", where, carries, CK.column_carries_plain(bf, sums, flags), err)
+        got = CK.bucket_sums(bf, tails, tail_col, carries)
+        _require_same("bucket", where, got, CK.bucket_sums_plain(bf, tails, tail_col, carries),
+                      err)
+        if not torch.equal(got, stack_point(ck.commit_batch(s))):
+            raise SystemExit(f"compress: the staged commit {where} != commit_batch")
+        aff = list(derive_generators(name, n - 1))  # G_0 .. G_(n-2), then h
+        for k, pt in enumerate(c.to_affine_ints(unstack_point(got))):
+            if pt != msm_native_affine(name, aff, vals[k * n : (k + 1) * n]):
+                raise SystemExit(f"compress: commit row {k} {where} != the native Pippenger")
+
+        m_aff = hash_to_curve_ints(name, 29, domain=b"vdf_tpu/t")
+        pts = stack_point(c.from_affine_ints(m_aff, device)).contiguous()
+        m_vals = _xorshift_ints(29, q, rng)
+        scalars = c.scalar.encode(m_vals, device)
+        args, _ = _msm_stage_args(name, pts, scalars)
+        for kname, a in args.items():
+            fn = COMMIT_KERNELS[kname][0] if kname in COMMIT_KERNELS else kname
+            got, want = getattr(CK, fn)(*a), getattr(CK, fn + "_plain")(*a)
+            torch.cuda.synchronize()
+            _require_same(kname, f"on {name} at n=29, variable base", got, want, err)
+        if _affine(c, msm(c, unstack_point(pts), scalars)) != \
+                msm_native_affine(name, m_aff, m_vals):
+            raise SystemExit(f"compress: msm on {name} at n=29 != the native Pippenger")
+    _log(f"compress kernels: both curves, the key with h ({n} generators): its table == K7's "
+         f"plain version over G ‖ h; K3, K4, K5, K6 == plain at K=2 and the commits == "
+         f"commit_batch == the native Pippenger; msm at n=29: K3 (window rows), K4, K5, K6, "
+         f"K9 == plain and the sum == the native Pippenger; bit for bit")
+
+
+def phase_compress(ivc: dict, card: str) -> tuple[dict, dict, dict]:
+    """Compression and serialization of phase 12's proofs, with no device
+    argument anywhere: ivc_compress -> ivc_verify_compressed on the 8-step
+    device proof (each between two synchronisations), serialize_compressed
+    -> deserialize_compressed -> verify and the same bytes again; the device
+    engine's compress of the 3-step device proof byte-equal to the native
+    engine's of the 3-step native proof; tamper cases; the compress split
+    by part (ivc_compress's PhaseTimer spans); then K3-K7 and K9 against
+    their plain versions at compression's shapes.  Returns stats, the launch
+    counts of K1/K2 and K3-K9 from the keys' h tables to the end of verify,
+    and each kernel's largest difference from its plain version here."""
+    import dataclasses
+
+    import torch
+
+    from vdf_tpu_torch import (
+        SerializationError,
+        deserialize_compressed,
+        ivc_compress,
+        ivc_verify_compressed,
+        serialize_compressed,
+    )
+    from vdf_tpu_torch.curves import kernels as CK
+    from vdf_tpu_torch.fields import kernels as FK
+    from vdf_tpu_torch.spartan import SpartanProof
+    from vdf_tpu_torch.utils.profiling import PhaseTimer
+
+    pp, proof, steps, z0, start = (ivc[k] for k in ("pp", "proof", "steps", "z0", "start"))
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    FK.reset_launches()
+    CK.reset_launches()
+    # Set-up: each key with h appended (K7 on h, the table copied once).
+    _, h_tables_s = clock(lambda: [side.ck.with_h.table for side in (pp.primary, pp.secondary)])
+    cp, compress_s = clock(lambda: ivc_compress(pp, proof))
+    ok, verify_s = clock(lambda: ivc_verify_compressed(pp, cp, steps, z0, start))
+    launches = {**FK.LAUNCHES, **CK.LAUNCHES}  # of set-up, compress and verify alone
+    if not ok:
+        raise SystemExit("compress: ivc_verify_compressed is False")
+    if not isinstance(cp.spartan_primary, SpartanProof) or not cp.spartan_primary.vW.is_cuda:
+        raise SystemExit("compress: the device engine's argument is not on the card")
+    for kname in ("canon_digits", "scan", "colscan", "bucket", "horner"):
+        if launches[kname] <= 0:
+            raise SystemExit(f"evidence: kernel {kname} was not launched by the compress path")
+    blob, serialize_s = clock(lambda: serialize_compressed(pp, cp))
+    back, deserialize_s = clock(lambda: deserialize_compressed(pp, blob))
+    if not ivc_verify_compressed(pp, back, steps, z0, start):
+        raise SystemExit("compress: the deserialized proof does not verify")
+    if serialize_compressed(pp, back) != blob:
+        raise SystemExit("compress: serialize(deserialize(bytes)) gives other bytes")
+    _log(f"compress: t={pp.t}, {steps} steps: {len(blob)} bytes; verifies, and so does its "
+         f"byte round trip")
+
+    # The device engine's compress of the 3-step device proof, and the
+    # native engine's of the 3-step native proof: the same bytes.
+    pp_n, n_steps = ivc["pp_native"], ivc["check_steps"]
+    cp_d = ivc_compress(pp, ivc["check_device"])
+    cp_n, native_compress_s = clock(lambda: ivc_compress(pp_n, ivc["check_native"]))
+    blob_d, blob_n = serialize_compressed(pp, cp_d), serialize_compressed(pp_n, cp_n)
+    if blob_d != blob_n:
+        raise SystemExit(f"compress: the device and native engines' compressed {n_steps}-step "
+                         f"proofs differ")
+    if len(blob_d) != len(blob):
+        raise SystemExit(f"compress: {len(blob_d)} bytes at {n_steps} steps, {len(blob)} at "
+                         f"{steps}: the size depends on the steps")
+    _log(f"compress: the device and native engines' compressed {n_steps}-step proofs are "
+         f"byte-equal ({len(blob_d)} bytes, the same as at {steps} steps)")
+
+    f_p, f_s = pp.primary.field, pp.secondary.field
+    sp_p, sp_s = cp.spartan_primary, cp.spartan_secondary
+    msg0 = sp_p.sc1_messages[0]
+    ipa = sp_p.ipa_w
+    tampered = {
+        "wrong num_steps": (cp, steps + 1, start),
+        "wrong zn": (cp, steps, [start[0] + 1, *start[1:]]),
+        "a changed sumcheck message": (dataclasses.replace(cp, spartan_primary=sp_p._replace(
+            sc1_messages=((f_p.add(msg0[0], f_p.one()), *msg0[1:]), *sp_p.sc1_messages[1:]))),
+            steps, start),
+        "vW + 1": (dataclasses.replace(cp, spartan_secondary=sp_s._replace(
+            vW=f_s.add(sp_s.vW, f_s.one()))), steps, start),
+        "a swapped IPA point": (dataclasses.replace(cp, spartan_primary=sp_p._replace(
+            ipa_w=ipa._replace(ls=(ipa.rs[0], *ipa.ls[1:]), rs=(ipa.ls[0], *ipa.rs[1:])))),
+            steps, start),
+    }
+    for what, (bad, n, zn) in tampered.items():
+        if ivc_verify_compressed(pp, bad, n, z0, zn):
+            raise SystemExit(f"compress: a compressed proof with {what} verified")
+    try:
+        deserialize_compressed(pp, blob[:-1])
+        raise SystemExit("compress: a truncated blob decoded")
+    except SerializationError:
+        pass
+    _log(f"compress: rejected {', '.join(tampered)}, a truncated blob")
+
+    # The split: ivc_compress's own spans, each between two synchronisations.
+    timer = PhaseTimer(sync=torch.cuda.synchronize)
+    again, split_s = clock(lambda: ivc_compress(pp, proof, timer))
+    if serialize_compressed(pp, again) != blob:
+        raise SystemExit("compress: the instrumented compress gave other bytes")
+    split = dict(timer.totals)
+    for side in (pp.primary, pp.secondary):
+        name = side.curve_name
+        split[f"{name}/other"] = split[name] - sum(v for k, v in timer.totals.items()
+                                                  if k.startswith(name + "/"))
+    split["other"] = split_s - split["closing fold"] - split["pallas"] - split["vesta"]
+
+    err: dict = {}
+    _compress_shape_checks(pp, err)
+    stats = {"t": pp.t, "steps": steps, "card": card, "bytes": len(blob),
+             "h_tables_s": h_tables_s, "compress_s": compress_s, "verify_s": verify_s,
+             "serialize_s": serialize_s, "deserialize_s": deserialize_s,
+             "native_compress_s": native_compress_s, "instrumented_compress_s": split_s,
+             "compress_split_s": split}
+    _log(f"compress: ivc_compress {compress_s:.4f} s, ivc_verify_compressed {verify_s:.4f} s, "
+         f"{len(blob)} bytes; native engine's compress {native_compress_s:.3f} s; {card}")
+    _log("compress: split of an instrumented compress (s) " + json.dumps(split))
+    _log("compress: " + json.dumps(stats))
+    _log(f"compress: launches during the compress main path (h tables, compress, verify) "
+         f"{launches}")
+    return stats, launches, err
 
 
 def main() -> None:
@@ -1764,7 +2011,9 @@ def main() -> None:
     msm_kernel_stats = phase_msm_kernels(device, MSM_CHECK_N, MSM_N, clock_hz)
     _, msm_launches = phase_msm(device, MSM_N, MSM_CHECK_N)
     _, engine_launches = phase_engine(ENGINE_T, ENGINE_STEPS)
-    _, ivc_launches = phase_ivc(IVC_T, IVC_STEPS, IVC_CHECK_STEPS, card)
+    _, ivc_launches, ivc_proofs = phase_ivc(IVC_T, IVC_STEPS, IVC_CHECK_STEPS, card)
+    _, compress_launches, compress_err = phase_compress(ivc_proofs, card)
+    del ivc_proofs
 
     # Evidence: K1, K3-K7 and K9 were launched by the MSM and engine paths.
     moved = {k: msm_launches.get(k, 0) + engine_launches.get(k, 0) for k in engine_launches}
@@ -1807,23 +2056,28 @@ def main() -> None:
     commit_kernel_stats["canon_digits"]["msm_shape"] = {
         "n": MSM_N, "window_rows": True, **{k: msm_digits[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by")}}
+    # Each kernel's error also covers its checks at compression's shapes.
+    for name, e in compress_err.items():
+        st = msm_kernel_stats["horner"] if name == "horner" else commit_kernel_stats[name]
+        st["max_abs_err"] = max(st["max_abs_err"], e)
     msm_src = "vdf_tpu_torch/csrc/msm_kernels.cuh"
     kernels = [
         entry(name, "vdf_tpu_torch/csrc/minroot_kernels.cuh", replaces[name],
               {"minroot": main_stats["launches"][name], "engine": engine_launches[name],
-               "ivc": ivc_launches[name]},
+               "ivc": ivc_launches[name], "compress": compress_launches[name]},
               st, {"lanes": st["lanes"], "t": st["t"], "field": "Fq"})
         for name, st in kernel_stats.items()
     ] + [
         entry(name, msm_src, COMMIT_KERNELS[name][1],
               {"commit": commit_launches[name], "msm": msm_launches[name],
-               "engine": engine_launches[name], "ivc": ivc_launches[name]},
+               "engine": engine_launches[name], "ivc": ivc_launches[name],
+               "compress": compress_launches[name]},
               st, {"n": COMMIT_N, "curve": "pallas", "batch": 1})
         for name, st in commit_kernel_stats.items()
     ] + [
         entry("horner", msm_src, "vdf_tpu/curves/pallas_msm.py:234",
               {"msm": msm_launches["horner"], "engine": engine_launches["horner"],
-               "ivc": ivc_launches["horner"]},
+               "ivc": ivc_launches["horner"], "compress": compress_launches["horner"]},
               msm_kernel_stats["horner"], {"batch": 1, "curve": "pallas"}),
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """The port stands alone: it imports without jax or vdf_tpu, and its
 native oracle is the JAX package's C++ source, byte for byte.  The ``gpu``
-test proves and verifies one step of the two-curve IVC on the card; it
-skips where ``torch.cuda.is_available()`` is False:
+tests prove and verify one step of the two-curve IVC on the card, and
+compress, serialize and verify that proof; they skip where
+``torch.cuda.is_available()`` is False:
 
     python -m pytest tests/test_torch_package.py -q -m gpu --noconftest
 """
@@ -31,15 +32,21 @@ class Block:
 sys.meta_path.insert(0, Block())
 import vdf_tpu_torch
 from vdf_tpu_torch import _build, curves, device, interop, native, nova, poseidon, r1cs
+from vdf_tpu_torch import serialize, spartan
 from vdf_tpu_torch.curves import bucket_msm, kernels
 from vdf_tpu_torch.curves.msm import msm, msm_layout
-from vdf_tpu_torch.nova import augmented, circuit, ivc, nifs, r1cs_device, snark
+from vdf_tpu_torch.nova import augmented, circuit, compressed, ivc, nifs, r1cs_device, snark
+from vdf_tpu_torch.spartan import host, ipa, multilinear, sumcheck
+from vdf_tpu_torch.spartan import snark as spartan_snark
 from vdf_tpu_torch.nova.gadgets import bignat, ec, instance, sponge
 from vdf_tpu_torch.poseidon import int_poseidon, params, permutation
 from vdf_tpu_torch.r1cs import bits, cs, gadgets, witness
 from vdf_tpu_torch.utils import profiling
 
 assert vdf_tpu_torch.ivc_public_params is ivc.ivc_public_params
+assert vdf_tpu_torch.ivc_compress is compressed.ivc_compress
+assert vdf_tpu_torch.serialize_compressed is serialize.serialize_compressed
+assert spartan.spartan_prove is spartan_snark.spartan_prove and spartan.ipa_prove is ipa.ipa_prove
 assert int_poseidon._native_permute() is not None  # the native tier builds and agrees
 
 assert vdf_tpu_torch.commitment_key is nova.commitment_key
@@ -84,3 +91,34 @@ def test_ivc_step_on_card():
                                             "bucket"))
     assert ivc_verify(pp, proof, 2, z0, proof.z_i)
     assert not ivc_verify(pp, proof, 3, z0, proof.z_i)
+
+
+@pytest.mark.gpu
+def test_compress_on_card():
+    """The t = 1 proof of two steps compressed on the card, serialized, read
+    back and verified, no device argument anywhere; K9 ran (the openings'
+    msm)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    from vdf_tpu_torch import (
+        RecursiveIVC,
+        deserialize_compressed,
+        ivc_compress,
+        ivc_public_params,
+        ivc_verify_compressed,
+        serialize_compressed,
+    )
+    from vdf_tpu_torch.curves import kernels as CK
+
+    pp = ivc_public_params(1)
+    z0 = [3, 4, 5]
+    prover = RecursiveIVC(pp, z0)
+    prover.prove_step()
+    proof = prover.proof()
+    CK.reset_launches()
+    cp = ivc_compress(pp, proof)
+    assert cp.spartan_primary.vW.is_cuda
+    back = deserialize_compressed(pp, serialize_compressed(pp, cp))
+    assert ivc_verify_compressed(pp, back, 2, z0, proof.z_i)
+    assert not ivc_verify_compressed(pp, back, 3, z0, proof.z_i)
+    assert CK.LAUNCHES["horner"] > 0

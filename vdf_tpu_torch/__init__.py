@@ -19,14 +19,19 @@ reference.  This package imports neither jax nor vdf_tpu.  It holds:
     prover and O(1) verifier (``nova.ivc``: ``ivc_public_params``,
     ``RecursiveIVC``, ``ivc_verify``), whose commits and cross terms run on
     the card (``engine="device"``) or on the native C++ tier
-    (``engine="native"``).
+    (``engine="native"``);
+  * compression and serialization: the Spartan+IPA argument (``spartan``)
+    that replaces the IVC proof's witness vectors (``nova.ivc_compress``,
+    ``nova.ivc_verify_compressed``; ``NovaVDFProof.compress`` for the
+    single-curve engine), and the canonical byte form of both IVC proofs
+    (``serialize``), the JAX package's byte for byte.
 
 Every kernel is written by hand in CUDA C++ for sm_90a (csrc/) and built
 with nvcc at first use.  Top-level surface mirrors the reference's
 ``lib.rs`` exports (src/lib.rs:1-4) as far as the port reaches.
 """
 
-from . import curves, fields, minroot, nova, poseidon, r1cs  # noqa: F401
+from . import curves, fields, minroot, nova, poseidon, r1cs, serialize, spartan  # noqa: F401
 from .curves import Curve, Point, get_curve, msm  # noqa: F401
 from .minroot import (  # noqa: F401
     EvalMode,
@@ -46,15 +51,25 @@ from .errors import (  # noqa: F401
 )
 from .nova import (  # noqa: F401
     CommitmentKey,
+    CompressedIVCProof,
+    CompressedVDFProof,
     IVCParams,
     IVCProof,
     NovaVDFProof,
     RecursiveIVC,
     commitment_key,
     eval_and_make_circuits,
+    ivc_compress,
     ivc_public_params,
     ivc_verify,
+    ivc_verify_compressed,
     public_params,
+)
+from .serialize import (  # noqa: F401
+    deserialize_compressed,
+    deserialize_ivc_proof,
+    serialize_compressed,
+    serialize_ivc_proof,
 )
 from .utils import TEST_SEED  # noqa: F401
 

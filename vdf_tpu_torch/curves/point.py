@@ -185,13 +185,13 @@ class Curve:
         x = f.encode(f.params.modulus - 1, device)
         return Point(*(self._bcast(v, shape) for v in (x, f.encode(2, device), f.one(device))))
 
-    def from_affine_ints(self, coords: list[tuple[int, int]], device=None) -> Point:
-        """Host ints [(x, y), ...] -> batched projective points (z = 1)."""
-        device = resolve_device(device)
+    def from_affine_ints(self, coords: list[tuple[int, int] | None], device=None) -> Point:
+        """Host ints [(x, y) or None, ...] -> batched projective points
+        (z = 1; None is the identity (0 : 1 : 0)), in one transfer."""
         f = self.field
-        xs = f.encode([c[0] for c in coords], device)
-        ys = f.encode([c[1] for c in coords], device)
-        return Point(xs, ys, self._bcast(f.one(device), xs.shape[:-1]))
+        xyz = f.encode([v for c in coords for v in ((0, 1, 0) if c is None else (*c, 1))],
+                       resolve_device(device))
+        return Point(*(v.contiguous() for v in xyz.reshape(-1, 3, xyz.shape[-1]).unbind(1)))
 
     # -- group law ------------------------------------------------------
 

@@ -15,12 +15,14 @@ from .nifs import NIFS, R1CSInstance, RelaxedInstance, RelaxedWitness
 from .pedersen import DEFAULT_LABEL, CommitmentKey, commitment_key, derive_generators
 from .r1cs_device import DeviceMatrix, DeviceShape
 from .snark import (
+    CompressedVDFProof,
     NovaVDFProof,
     PublicParams,
     RecursiveSNARK,
     eval_and_make_circuits,
     public_params,
 )
+from .compressed import CompressedIVCProof, ivc_compress, ivc_verify_compressed
 
 __all__ = [
     "AugmentedCircuit",
@@ -28,6 +30,8 @@ __all__ = [
     "make_circuits",
     "ENGINES",
     "CanonicalWitness",
+    "CompressedIVCProof",
+    "CompressedVDFProof",
     "HostInstance",
     "HostRelaxedInstance",
     "IVCParams",
@@ -35,6 +39,8 @@ __all__ = [
     "RecursiveIVC",
     "ivc_public_params",
     "ivc_verify",
+    "ivc_compress",
+    "ivc_verify_compressed",
     "DEFAULT_LABEL",
     "CommitmentKey",
     "commitment_key",

@@ -21,7 +21,7 @@ import torch
 
 from ..curves import Curve, Point, get_curve, hash_to_curve_ints
 from ..curves.bucket_msm import commit_table
-from ..curves.kernels import canon_mont, shift_gens
+from ..curves.kernels import WINDOWS, canon_mont, shift_gens
 from ..curves.point import stack_point, unstack_point
 from ..device import resolve_device
 from ..fields import NLIMBS
@@ -43,6 +43,20 @@ class CommitmentKey:
     def table(self) -> torch.Tensor:
         """(W n, 3, 8): item w n + i = 2^(12 w) G_i (kernel K7)."""
         return shift_gens(self.curve.params.base_field, stack_point(self.gens).contiguous())
+
+    @functools.cached_property
+    def with_h(self) -> "CommitmentKey":
+        """The key of the n + 1 generators G_0 .. G_{n-1}, h, so that one
+        commit of (a ‖ c) is <a, G> + c h: the inner-product argument's
+        rounds and final check (spartan/ipa.py).  Its table is this key's,
+        with h's window rows (K7 on one point) put after each window's n."""
+        c = self.curve
+        gens = Point(*(torch.cat([g, hv[None]]) for g, hv in zip(self.gens, self.h)))
+        ext = CommitmentKey(c, gens, self.h)
+        h_rows = shift_gens(c.params.base_field, stack_point(self.h)[None].contiguous())
+        rows = [t.reshape(WINDOWS, -1, 3, NLIMBS) for t in (self.table, h_rows)]
+        ext.table = torch.cat(rows, dim=1).reshape(-1, 3, NLIMBS).contiguous()
+        return ext
 
     def _padded(self, values: torch.Tensor) -> torch.Tensor:
         m = values.shape[-2]

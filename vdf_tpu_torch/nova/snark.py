@@ -18,8 +18,8 @@ circuit.
 The JAX package jits a whole step into one executable; here a step is eager
 torch, one small op after another, and its time splits into the witness
 pass, the commits, the matvecs, the transcript and the point scalings
-(chip_smoke.py reports the split).  Compressing the final witness away needs
-the Spartan argument, which is not ported yet.
+(chip_smoke.py reports the split).  ``NovaVDFProof.compress`` replaces
+the final witness with a Spartan argument (spartan/snark.py).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import hashlib
 import numpy as np
 import torch
 
-from ..curves import get_curve
+from ..curves import Point, get_curve
 from ..device import resolve_device
 from ..errors import NovaError
 from ..fields import Field, get_field
@@ -39,7 +39,9 @@ from ..minroot import Evaluation, MinRootVDF, State
 from ..poseidon import Transcript
 from ..r1cs.gadgets import AllocatedNum
 from ..r1cs.witness import WitnessCS
+from ..spartan.snark import SpartanCtx, spartan_prove, spartan_transcript, spartan_verify
 from .circuit import InverseMinRootCircuit
+from .ivc import HostRelaxedInstance
 from .nifs import NIFS, R1CSInstance, RelaxedInstance, RelaxedWitness
 from .pedersen import commitment_key
 from .r1cs_device import DeviceShape
@@ -65,6 +67,10 @@ class PublicParams:
         n = 1 << (n - 1).bit_length()
         ck = commitment_key(self.curve_name, n, device=self.device)
         return NIFS(self.field, get_curve(self.curve_name), self.dev_shape, ck)
+
+    @functools.cached_property
+    def spartan_ctx(self) -> SpartanCtx:
+        return SpartanCtx(self.field, self.curve_name, self.dev_shape, self.nifs.ck)
 
     def new_transcript(self) -> Transcript:
         tr = Transcript(self.field.params.name)
@@ -184,33 +190,66 @@ class NovaVDFProof:
         """Replay transcript, refold instances, check chaining + final
         relaxed satisfaction + commitment openings
         (reference verify, proof.rs:370-387)."""
-        f = pp.field
         snark = self.snark
-        if len(snark.step_instances) != num_steps or num_steps == 0:
-            return False
+        return (_chain_holds(pp, snark.step_instances, self.comm_ts, snark.U, num_steps, z0, zi)
+                and bool(pp.final_check(snark.U, snark.W)))
 
-        # 1. public-IO chaining: first z_in == z0; z_out_k == z_in_{k+1};
-        #    last z_out == zi.
-        def eq_state(a, b) -> bool:
-            a, b = (torch.stack([v.to(pp.device) for v in s]) for s in (a, b))
-            return bool(f.eq(a, b).all())
+    def compress(self, pp: PublicParams) -> "CompressedVDFProof":
+        """Replace the final witness with a Spartan argument (reference
+        compress, proof.rs:360-368)."""
+        sp = spartan_prove(pp.spartan_ctx, _host_instance(pp, self.snark.U), self.snark.W,
+                           spartan_transcript(pp.field, pp.field.decode(pp.digest)))
+        return CompressedVDFProof(self.snark.step_instances, self.comm_ts, self.snark.U, sp)
 
-        xs = [inst.x for inst in snark.step_instances]
-        if not eq_state(xs[0][:3], z0):
-            return False
-        for xk, xn in zip(xs, xs[1:]):
-            if not eq_state(xk[3:6], xn[:3]):
-                return False
-        if not eq_state(xs[-1][3:6], zi):
-            return False
 
-        # 2. transcript replay + instance-side refold.
-        U = _replay_folds(pp, snark.step_instances, self.comm_ts)
-        c = pp.nifs.curve
-        same = (c.eq(U.comm_w, snark.U.comm_w).all() & c.eq(U.comm_e, snark.U.comm_e).all()
-                & f.eq(U.x, snark.U.x).all() & f.eq(U.u, snark.U.u).all())
-        if not bool(same):
-            return False
+def _host_instance(pp: PublicParams, U: RelaxedInstance) -> HostRelaxedInstance:
+    """A relaxed instance's points as affine ints and its scalars as ints
+    (the form the Spartan transcript absorbs), from one read of each."""
+    comm_w, comm_e = pp.nifs.curve.to_affine_ints(
+        Point(*(torch.stack(c) for c in zip(U.comm_w, U.comm_e))))
+    *x, u = pp.field.decode(torch.cat([U.x, U.u[None]]))
+    return HostRelaxedInstance(comm_w, comm_e, x, u)
 
-        # 3. final relaxed satisfaction + openings.
-        return bool(pp.final_check(U, snark.W))
+
+def _chain_holds(pp: PublicParams, instances: list, comm_ts: list, U: RelaxedInstance,
+                 num_steps: int, z0: list, zi: list) -> bool:
+    """The verifier's checks short of the final witness: public-IO chaining
+    (first z_in == z0, z_out_k == z_in_{k+1}, last z_out == zi), then the
+    transcript replay, whose refolded instance must be U."""
+    f = pp.field
+    if len(instances) != num_steps or num_steps == 0:
+        return False
+
+    def eq_state(a, b) -> bool:
+        a, b = (torch.stack([v.to(pp.device) for v in s]) for s in (a, b))
+        return bool(f.eq(a, b).all())
+
+    xs = [inst.x for inst in instances]
+    if not eq_state(xs[0][:3], z0):
+        return False
+    for xk, xn in zip(xs, xs[1:]):
+        if not eq_state(xk[3:6], xn[:3]):
+            return False
+    if not eq_state(xs[-1][3:6], zi):
+        return False
+    refold = _replay_folds(pp, instances, comm_ts)
+    c = pp.nifs.curve
+    return bool(c.eq(refold.comm_w, U.comm_w).all() & c.eq(refold.comm_e, U.comm_e).all()
+                & f.eq(refold.x, U.x).all() & f.eq(refold.u, U.u).all())
+
+
+@dataclasses.dataclass
+class CompressedVDFProof:
+    """The folded instances and a Spartan argument for the final
+    accumulator: the final (W, E) vectors are no longer sent."""
+
+    step_instances: list
+    comm_ts: list
+    U: RelaxedInstance
+    spartan: object  # spartan.SpartanProof
+
+    def verify(self, pp: PublicParams, num_steps: int, z0: list, zi: list) -> bool:
+        if not _chain_holds(pp, self.step_instances, self.comm_ts, self.U, num_steps, z0, zi):
+            return False
+        return spartan_verify(pp.spartan_ctx, _host_instance(pp, self.U), self.spartan,
+                              spartan_transcript(pp.field, pp.field.decode(pp.digest)))
