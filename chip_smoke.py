@@ -7,7 +7,10 @@ Main paths: MinRoot over Fq, t = 2^16 on 8,192 lanes; fixed-base commits at
 n = 2^14; the variable-base MSM at n = 2^20; the single-curve Nova folding
 engine at t = 1000 iterations a step, 2 steps; the two-curve Nova IVC at
 t = 32 iterations a step, 8 steps, keys of 2^14 on Pallas and Vesta, and
-its proof compressed (Spartan+IPA) and serialized.
+its proof compressed (Spartan+IPA) and serialized; on the same params, the
+checkpointed and resumed chain, the statement pipeline, the interleaved
+chains (K = 4 and 8), the four EvalMode schedules and the sharded functions
+over an NCCL process group of one rank.
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -132,7 +135,41 @@ Phases (any failure exits non-zero; nothing is caught):
              K3-K6 against their plain versions (the commits also against
              commit_batch and the native Pippenger), and an msm over 29
              points through K3 (window rows), K4-K6 and K9 against their
-             plain versions and the native Pippenger.
+             plain versions and the native Pippenger;
+ 14. service ProverConfig(t=32, engine="device").prover(z0) on phase 12's
+             params and z0, 3 steps, save_ivc; resume_ivc (verifies the
+             checkpoint first) and the remaining 5 steps: the final proof's
+             bytes equal phase 12's uninterrupted proof's, it verifies, its
+             handles are on the card; a checkpoint with one flipped body byte
+             and a truncated one refused; save_vdf / load_vdf of phase 3's
+             8,192-lane result state (the file's length checked, the same
+             tensors back on the card); wall ms of save, load and resume; the
+             launch counters of config -> prove -> save -> resume -> prove;
+ 15. pipeline prove_stream on 4 statements of 8 steps at t = 32 (the first
+             phase 12's statement) in turns: sequential, pipelined,
+             pipelined, sequential; each statement's eval s and fold s, each
+             run's wall s, the proofs equal between the runs and the first
+             equal to phase 12's, each verified; K1 launched once a
+             statement, on a stream other than the default (its wrapper
+             counts launches by stream); prove_interleaved at K = 4 and K = 8
+             chains of 8 steps (chain 0 from phase 12's z0) and at K = 1, the
+             baseline through the same call: every chain verifies, chain 0 is
+             phase 12's proof byte for byte, aggregate folds/s (median of 3
+             runs, min, max) beside phase 12's single chain and native
+             engine; the launch counters of the first pipelined run and of
+             the first interleaved run;
+ 16. modes and mesh  forward_step in each of the four EvalModes and
+             forward_step_unrolled on 8,192 lanes on the card, equal to each
+             other and to K1 at t = 1, each mode's eager wall ms, program_cost
+             by mode and field; then an NCCL process group of world size 1
+             through a file:// store in a temp dir: sharded_eval (8,192 lanes,
+             t = 2^10) == MinRootVDF.eval, sharded_check counts 8,192 valid
+             lanes and 8,191 with one tampered, sharded_matvec on phase 12's
+             primary A, B and C == DeviceMatrix.matvec, sharded_msm at
+             n = 2^20 == msm on phase 9's inputs == the native Pippenger; ms
+             of the sharded calls, one all_gather and one all_reduce; the
+             launch counters of the sharded calls.  One card: no cross-card
+             NCCL time and no IVC tensor-parallel path is measured.
 
 The last lines are a JSON object of per-kernel evidence, the card's name
 and power limit, and the contract line
@@ -504,6 +541,7 @@ def phase_main(device, lanes: int, t: int, t_append: int) -> dict:
         "launches": launches,
     }
     _log("main: " + json.dumps(out))
+    out["result"] = proof.result  # phase 14 checkpoints it
     return out
 
 
@@ -1983,6 +2021,377 @@ def phase_compress(ivc: dict, card: str) -> tuple[dict, dict, dict]:
     return stats, launches, err
 
 
+SAVE_AT = 3  # phase 14: the steps proven before the checkpoint is written
+PIPE_STATEMENTS = 4  # phase 15: statements of IVC_STEPS steps each
+INTERLEAVED_K = (4, 8)  # phase 15: chains folded at once (bench.py:114)
+INTERLEAVED_RUNS = 3  # phase 15: runs of each K; the median, min and max are printed
+MESH_T = 1 << 10  # phase 16: rounds of sharded_eval / sharded_check
+
+
+def _clock(fn):
+    """(fn(), wall s between two synchronisations)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _counts() -> dict:
+    from vdf_tpu_torch.curves import kernels as CK
+    from vdf_tpu_torch.fields import kernels as FK
+
+    return {**FK.LAUNCHES, **CK.LAUNCHES}
+
+
+def _reset_counts() -> None:
+    from vdf_tpu_torch.curves import kernels as CK
+    from vdf_tpu_torch.fields import kernels as FK
+
+    FK.reset_launches()
+    CK.reset_launches()
+
+
+def phase_service(ivc: dict, vdf_state, vdf_t: int, card: str) -> tuple[dict, dict]:
+    """Checkpoints and ProverConfig on phase 12's params, with no device
+    argument anywhere: ProverConfig(t, engine="device").prover(z0), SAVE_AT
+    steps, save_ivc; resume_ivc (verifies the checkpoint) and the remaining
+    steps; the final proof's bytes equal to phase 12's uninterrupted proof's;
+    a flipped body byte and a truncated file refused; save_vdf / load_vdf of
+    phase 3's result state.  Returns stats and the launch counts of config ->
+    prove -> save -> resume -> prove (read before the checks)."""
+    import tempfile
+
+    import torch
+
+    from vdf_tpu_torch import ProverConfig, SerializationError, ivc_verify, serialize_ivc_proof
+    from vdf_tpu_torch.checkpoint import load_ivc, load_vdf, resume_ivc, save_ivc, save_vdf
+
+    pp, proof, steps, z0, start = (ivc[k] for k in ("pp", "proof", "steps", "z0", "start"))
+    want = serialize_ivc_proof(pp, proof)
+    with tempfile.TemporaryDirectory() as tmp:
+        path, vpath = os.path.join(tmp, "ivc.ckpt"), os.path.join(tmp, "vdf.ckpt")
+        _reset_counts()
+        cfg = ProverConfig(t=pp.t, engine="device")
+        if cfg.public_params() is not pp:
+            raise SystemExit("service: ProverConfig's params are not phase 12's (the cache)")
+        prover = cfg.prover(z0)
+        for _ in range(SAVE_AT - 1):
+            prover.prove_step()
+        _, save_s = _clock(lambda: save_ivc(path, pp, prover))
+        resumed, resume_s = _clock(lambda: resume_ivc(path, pp))
+        for _ in range(steps - SAVE_AT):
+            resumed.prove_step()
+        final = resumed.proof()
+        torch.cuda.synchronize()
+        launches = _counts()  # of the service path alone
+        _, load_s = _clock(lambda: load_ivc(path, pp))
+        ckpt_bytes = os.path.getsize(path)
+        if serialize_ivc_proof(pp, final) != want:
+            raise SystemExit(f"service: the {steps}-step proof resumed from a checkpoint at "
+                             f"step {SAVE_AT} differs from phase 12's uninterrupted proof")
+        if not ivc_verify(pp, final, steps, z0, start):
+            raise SystemExit("service: the resumed chain's proof does not verify")
+        if not (resumed.r_W_primary.is_cuda and final.l_w_secondary.is_cuda):
+            raise SystemExit("service: a resumed witness handle is not on the card")
+        _log(f"service: a {steps}-step chain checkpointed at step {SAVE_AT} ({ckpt_bytes} bytes) "
+             f"and resumed gives phase 12's proof byte for byte; it verifies")
+
+        blob = bytearray(open(path, "rb").read())
+        blob[len(blob) // 2] ^= 1
+        for what, data, fn in (("one flipped body byte", bytes(blob), resume_ivc),
+                               ("a truncated file", bytes(blob[:-10]), load_ivc)):
+            with open(path, "wb") as fh:
+                fh.write(data)
+            try:
+                fn(path, pp)
+                raise SystemExit(f"service: a checkpoint with {what} was accepted")
+            except SerializationError:
+                pass
+        _log("service: refused a checkpoint with one flipped body byte and a truncated one")
+
+        lanes = vdf_state.x.shape[0]
+        _, save_vdf_s = _clock(lambda: save_vdf(vpath, "Fq", vdf_state, vdf_t))
+        if os.path.getsize(vpath) != 16 + 8 + 1 + 8 + 3 * 32 * lanes:
+            raise SystemExit(f"service: the VDF checkpoint holds {os.path.getsize(vpath)} bytes")
+        (name, back, t), load_vdf_s = _clock(lambda: load_vdf(vpath))
+        if name != "Fq" or t != vdf_t or not back.x.is_cuda or not all(
+                torch.equal(a, b) for a, b in zip(back, vdf_state)):
+            raise SystemExit("service: save_vdf -> load_vdf changed the state")
+        _log(f"service: save_vdf -> load_vdf of phase 3's {lanes}-lane state at t={vdf_t}: "
+             f"the same tensors, {os.path.getsize(vpath)} bytes")
+    for kname in ("canon_digits", "canon_mont", "scan", "colscan", "bucket"):
+        if launches[kname] <= 0:
+            raise SystemExit(f"evidence: kernel {kname} was not launched by the service path")
+    stats = {"card": card, "save_at": SAVE_AT, "steps": steps, "ckpt_bytes": ckpt_bytes,
+             "save_ivc_ms": save_s * 1e3, "load_ivc_ms": load_s * 1e3,
+             "resume_ivc_ms": resume_s * 1e3, "save_vdf_ms": save_vdf_s * 1e3,
+             "load_vdf_ms": load_vdf_s * 1e3, "vdf_lanes": lanes}
+    _log("service: " + json.dumps(stats))
+    _log(f"service: launches during the service path (config, {SAVE_AT} steps, save, resume, "
+         f"{steps - SAVE_AT} steps, proof) {launches}")
+    return stats, launches
+
+
+def phase_pipeline(ivc: dict, ivc_stats: dict, card: str) -> tuple[dict, dict, dict]:
+    """The statement pipeline and the interleaved chains on phase 12's params,
+    with no device argument: prove_stream on PIPE_STATEMENTS statements of
+    phase 12's steps (the first one phase 12's statement), sequential and
+    pipelined in turns; the proofs equal between the runs and to phase 12's,
+    each verified; K1 launched once a statement, on a stream other than the
+    default; then prove_interleaved at each K of INTERLEAVED_K and at K = 1
+    (chain 0 phase 12's z0), INTERLEAVED_RUNS runs each, every chain verified.
+    Returns stats and the launch counts of the pipelined run and of the
+    first interleaved run."""
+    import torch
+
+    from vdf_tpu_torch import ivc_verify, pallas_vdf, serialize_ivc_proof
+    from vdf_tpu_torch.fields import kernels as FK
+    from vdf_tpu_torch.nova import VDFStatement, prove_interleaved, prove_stream
+    from vdf_tpu_torch.utils import XorShiftRng
+
+    pp, proof, steps, z0, start = (ivc[k] for k in ("pp", "proof", "steps", "z0", "start"))
+    want = serialize_ivc_proof(pp, proof)
+    p = pp.primary.field.params.modulus
+    rng = XorShiftRng(bytes([7] * 16))
+    starts = [tuple(start)] + [(x, 0, 1) for x in _xorshift_ints(max(INTERLEAVED_K) - 1, p, rng)]
+    statements = [VDFStatement(s, steps) for s in starts[:PIPE_STATEMENTS]]
+
+    # In turns (sequential, pipelined, pipelined, sequential): the host's
+    # speed drifts between runs more than the pipeline can move the time.
+    seq, seq_s = _clock(lambda: prove_stream(pp, statements, pipelined=False))
+    _reset_counts()
+    pipe, pipe_s = _clock(lambda: prove_stream(pp, statements, pipelined=True))
+    launches = _counts()  # of the first pipelined run alone
+    streams = {s: n for (k, s), n in FK.STREAMS.items() if k == "minroot_eval"}
+    default = torch.cuda.default_stream().cuda_stream
+    if launches["minroot_eval"] != len(statements) or default in streams:
+        raise SystemExit(f"pipeline: K1 launches by stream {streams} (default stream {default}); "
+                         f"want {len(statements)}, none on the default stream")
+    for a, b in zip(seq, pipe):
+        if not (a.verified and b.verified):
+            raise SystemExit("pipeline: a statement's proof does not verify")
+        if a.statement != b.statement or serialize_ivc_proof(pp, a.proof) != \
+                serialize_ivc_proof(pp, b.proof):
+            raise SystemExit("pipeline: the sequential and pipelined proofs differ")
+    if serialize_ivc_proof(pp, pipe[0].proof) != want:
+        raise SystemExit("pipeline: the first statement's proof is not phase 12's")
+    pipe2, pipe2_s = _clock(lambda: prove_stream(pp, statements, pipelined=True))
+    seq2, seq2_s = _clock(lambda: prove_stream(pp, statements, pipelined=False))
+    if any(serialize_ivc_proof(pp, a.proof) != serialize_ivc_proof(pp, b.proof)
+           for a, b in zip(pipe2 + seq2, pipe + seq)):
+        raise SystemExit("pipeline: a repeated run gave other proofs")
+    _log(f"pipeline: {len(statements)} statements of {steps} steps at t={pp.t}: sequential and "
+         f"pipelined proofs equal (the first one phase 12's), each verifies; K1 launched "
+         f"{launches['minroot_eval']} times, on streams {sorted(streams)} (default {default})")
+    per_statement = [{"eval_s": [a.eval_seconds, b.eval_seconds],
+                      "fold_s": [a.fold_seconds, b.fold_seconds]} for a, b in zip(seq, pipe)]
+
+    # The statements' z0s (one K1 launch over the lanes), before any timing.
+    vdf = pallas_vdf()
+    f = vdf.field
+    s0 = vdf.state_from_ints(*(list(c) for c in zip(*starts)))
+    z0s = [list(c) for c in zip(*vdf.state_to_ints(vdf.eval(s0, pp.t * steps)))]
+    if z0s[0] != list(z0):
+        raise SystemExit("interleaved: chain 0's z0 is not phase 12's")
+    interleaved, il_launches = {}, None
+    for k in (*INTERLEAVED_K, 1):  # K = 1: one chain through the same call, the baseline
+        rates = []
+        for run in range(INTERLEAVED_RUNS):
+            if il_launches is None:
+                _reset_counts()
+            proofs, dt = _clock(lambda: prove_interleaved(pp, z0s[:k], steps))
+            if il_launches is None:
+                il_launches = _counts()  # of the first run alone, before its checks
+            rates.append(k * (steps - 1) / dt)
+            if run == 0:
+                for pf, z, s in zip(proofs, z0s, starts):
+                    if not ivc_verify(pp, pf, steps, z, list(s)):
+                        raise SystemExit(f"interleaved: a chain of K={k} does not verify")
+                if serialize_ivc_proof(pp, proofs[0]) != want:
+                    raise SystemExit(f"interleaved: chain 0 of K={k} is not phase 12's proof")
+        interleaved[k] = {"folds_per_s_median": _median(rates), "folds_per_s_min": min(rates),
+                          "folds_per_s_max": max(rates), "runs": INTERLEAVED_RUNS,
+                          "folds_a_run": k * (steps - 1)}
+        _log(f"interleaved: K={k} chains of {steps} steps: every chain verifies, chain 0 is "
+             f"phase 12's proof; aggregate {interleaved[k]['folds_per_s_median']:.3f} folds/s "
+             f"(median of {INTERLEAVED_RUNS}; min {min(rates):.3f}, max {max(rates):.3f}) beside "
+             f"one chain's {ivc_stats['device']['folds_per_s_median']:.3f} and the native "
+             f"engine's {ivc_stats['native']['folds_per_s_median']:.3f}; {card}")
+    for kname in ("minroot_eval", "canon_digits", "canon_mont", "scan", "colscan", "bucket"):
+        if launches[kname] <= 0:
+            raise SystemExit(f"evidence: kernel {kname} was not launched by the pipeline path")
+    for kname in ("canon_digits", "canon_mont", "scan", "colscan", "bucket"):
+        if il_launches[kname] <= 0:
+            raise SystemExit(f"evidence: kernel {kname} was not launched by the interleaved path")
+    stats = {"card": card, "t": pp.t, "steps": steps, "statements": len(statements),
+             "sequential_s": [seq_s, seq2_s], "pipelined_s": [pipe_s, pipe2_s],
+             "pipelined_over_sequential": (seq_s + seq2_s) / (pipe_s + pipe2_s),
+             "per_statement": per_statement,
+             "interleaved": interleaved,
+             "single_chain_folds_per_s": ivc_stats["device"]["folds_per_s_median"],
+             "native_folds_per_s": ivc_stats["native"]["folds_per_s_median"]}
+    _log(f"pipeline: in turns sequential {seq_s:.3f} s, pipelined {pipe_s:.3f} s, pipelined "
+         f"{pipe2_s:.3f} s, sequential {seq2_s:.3f} s ({stats['pipelined_over_sequential']:.4f}x "
+         f"over both pairs); per statement of the first pair [sequential, pipelined] "
+         + json.dumps(per_statement))
+    _log("pipeline: " + json.dumps(stats))
+    _log(f"pipeline: launches during the pipelined run {launches}")
+    _log(f"interleaved: launches during the first run (K={INTERLEAVED_K[0]}) {il_launches}")
+    return stats, launches, il_launches
+
+
+def phase_modes_mesh(device, ivc: dict, card: str) -> tuple[dict, dict]:
+    """The four EvalMode schedules and the mesh.  forward_step in each mode
+    and forward_step_unrolled on LANES lanes on the card, equal to each other
+    and to K1 at t = 1; program_cost of each mode on each field.  Then an NCCL
+    process group of one rank through a file:// store: sharded_eval (K1) at
+    LANES lanes and t = MESH_T == MinRootVDF.eval; sharded_check (K2 and one
+    all_reduce) counts every lane valid, and all but one with one lane
+    tampered; sharded_matvec on phase 12's primary A, B and C ==
+    DeviceMatrix.matvec; sharded_msm at MSM_N == msm on phase 9's inputs ==
+    the native Pippenger.  Returns stats and the launch counts of the
+    sharded calls (read before their comparisons)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from vdf_tpu_torch import EvalMode, msm, pallas_vdf
+    from vdf_tpu_torch.curves import get_curve, get_int_curve, unstack_point
+    from vdf_tpu_torch.fields import FIELDS, get_field, program_cost
+    from vdf_tpu_torch.fields.kernels import minroot_eval
+    from vdf_tpu_torch.native import msm_native_affine
+    from vdf_tpu_torch.parallel import (
+        distributed,
+        sharded_check,
+        sharded_eval,
+        sharded_matvec,
+        sharded_msm,
+    )
+    from vdf_tpu_torch.utils import XorShiftRng
+
+    f = get_field("Fq")
+    p = f.params.modulus
+    xs = _xorshift_ints(LANES, p, XorShiftRng(bytes([8] * 16)))
+    x = f.encode(xs, device)
+    zero = torch.zeros_like(x)
+    want = minroot_eval("Fq", x, zero, zero.clone(), 1)[0]
+    mode_ms, costs = {}, {}
+    for mode in EvalMode.all():
+        vdf = pallas_vdf(mode)
+        for form, fn in (("forward_step", vdf.forward_step),
+                         ("forward_step_unrolled", vdf.forward_step_unrolled)):
+            got, dt = _clock(lambda: fn(x))
+            if not torch.equal(got, want):
+                raise SystemExit(f"modes: {form} in mode {mode.value} differs from K1 at t=1")
+            mode_ms[f"{mode.value}/{form}"] = dt * 1e3
+        costs[mode.value] = {name: program_cost(P.inv_alpha, mode.value)
+                             for name, P in FIELDS.items()}
+    if f.decode(want[:2]) != [pow(v, f.params.inv_alpha, p) for v in xs[:2]]:
+        raise SystemExit("modes: K1 at t=1 is not the fifth root")
+    _log(f"modes: forward_step in each of the four modes and forward_step_unrolled on {LANES} "
+         f"lanes == K1 at t=1; eager wall ms " + json.dumps(mode_ms))
+    _log("modes: program_cost (squarings, products) by mode and field " + json.dumps(costs))
+
+    vdf = pallas_vdf()
+    pp = ivc["pp"]
+    c = get_curve("pallas")
+    base_aff, pts, scalars, ints = _msm_inputs("pallas", MSM_N, device)
+    points = unstack_point(pts)
+    s0 = vdf.state_from_ints(xs, [0] * LANES, list(range(LANES)), device=device)
+    dev = pp.primary.dev_shape
+    z = f.encode(_xorshift_ints(pp.primary.shape.num_vars, p, XorShiftRng(bytes([9] * 16))),
+                 device)
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(f"file://{tmp}/store", 1, 0)
+        try:
+            if dist.get_backend() != "nccl":
+                raise SystemExit(f"mesh: backend {dist.get_backend()}, not nccl")
+            mesh = distributed.global_mesh()
+            # NCCL makes its communicator at the first collective: apart.
+            _, first_s = _clock(lambda: dist.all_reduce(torch.ones(1, device=device)))
+            check = sharded_check(vdf, MESH_T, mesh)
+            _reset_counts()
+            shard, eval_s = _clock(lambda: sharded_eval(vdf, MESH_T, mesh)(s0))
+            valid, check_s = _clock(lambda: check(shard, s0))
+            bad = shard._replace(x=shard.x.clone())
+            bad.x[LANES // 2, 0] ^= 1
+            valid_bad = check(bad, s0)
+            mv, matvec_s = _clock(lambda: [sharded_matvec(f, m, z, mesh)
+                                           for m in (dev.a, dev.b, dev.c)])
+            total, smsm_s = _clock(lambda: sharded_msm(c, points, scalars, mesh))
+            launches = _counts()  # of the sharded calls alone
+            nnz = dev.a.rows.shape[0] + dev.b.rows.shape[0] + dev.c.rows.shape[0]
+            one = torch.zeros((1, 3, 8), dtype=torch.int32, device=device)
+            outs = [torch.empty_like(one)]
+            count = torch.ones(1, dtype=torch.int64, device=device)
+            _clock(lambda: dist.all_gather(outs, one))  # warm-up
+            _, gather_s = _clock(lambda: [dist.all_gather(outs, one) for _ in range(20)])
+            _, reduce_s = _clock(lambda: [dist.all_reduce(count) for _ in range(20)])
+        finally:
+            dist.destroy_process_group()
+    if not all(torch.equal(a, b) for a, b in zip(shard, vdf.eval(s0, MESH_T))):
+        raise SystemExit("mesh: sharded_eval differs from MinRootVDF.eval")
+    if (valid, valid_bad) != (LANES, LANES - 1):
+        raise SystemExit(f"mesh: sharded_check counted {valid} and {valid_bad} valid lanes")
+    if not all(torch.equal(a, m.matvec(f, z)) for a, m in zip(mv, (dev.a, dev.b, dev.c))):
+        raise SystemExit("mesh: sharded_matvec differs from DeviceMatrix.matvec")
+    ref, msm_s = _clock(lambda: msm(c, points, scalars))
+    native = msm_native_affine("pallas", list(base_aff),
+                               _collapsed(len(base_aff), ints, c.scalar.params.modulus))
+    if not (_affine(c, total) == _affine(c, ref) == native):
+        raise SystemExit("mesh: sharded_msm differs from msm / the native Pippenger")
+    del pts, scalars, points
+    torch.cuda.empty_cache()
+    stats = {"card": card, "world_size": 1, "backend": "nccl", "lanes": LANES, "t": MESH_T,
+             "sharded_eval_ms": eval_s * 1e3, "sharded_check_ms": check_s * 1e3,
+             "matvec_entries": nnz, "sharded_matvec_ms": matvec_s * 1e3,
+             "sharded_msm_ms": smsm_s * 1e3, "msm_ms": msm_s * 1e3,
+             "all_gather_point_ms": gather_s * 1e3 / 20, "all_reduce_int64_ms": reduce_s * 1e3 / 20,
+             "first_collective_ms": first_s * 1e3,
+             "mode_ms": mode_ms, "program_cost": costs}
+    _log(f"mesh: NCCL, world size 1: sharded_eval ({LANES} lanes, t={MESH_T}) == eval; "
+         f"sharded_check {valid} valid, {valid_bad} with one lane tampered; sharded_matvec on "
+         f"A, B, C ({nnz} entries) == DeviceMatrix.matvec; sharded_msm n={MSM_N} == msm == "
+         f"native Pippenger")
+    _log(f"mesh: sharded_msm {smsm_s * 1e3:.3f} ms beside msm {msm_s * 1e3:.3f} ms; one "
+         f"all_gather of a point {gather_s * 1e3 / 20:.4f} ms, one all_reduce of an int64 "
+         f"{reduce_s * 1e3 / 20:.4f} ms; {card}")
+    _log("mesh: one card: no cross-card NCCL time and no IVC tensor-parallel path (it needs two "
+         "or more ranks) is measured here")
+    _log("mesh: " + json.dumps(stats))
+    _log(f"mesh: launches during the sharded calls {launches}")
+    for kname in ("minroot_eval", "minroot_inverse", "canon_digits", "scan", "colscan", "bucket",
+                  "horner"):
+        if launches[kname] <= 0:
+            raise SystemExit(f"evidence: kernel {kname} was not launched by the mesh path")
+    return stats, launches
+
+
+def slice_phases(which=("service", "pipeline", "mesh")) -> None:
+    """Phases 14-16, any of them, after the build and phase 12 and nothing
+    else: ``python3 -c 'import chip_smoke as c; c.slice_phases(["pipeline"])'``.
+    Phase 14's VDF checkpoint holds an 8,192-lane state at t = 64 here."""
+    import torch
+
+    from vdf_tpu_torch import pallas_vdf
+
+    phase_build()
+    card = _card()
+    stats, _, proofs = phase_ivc(IVC_T, IVC_STEPS, IVC_CHECK_STEPS, card)
+    if "service" in which:
+        vdf = pallas_vdf()
+        s0 = vdf.state_from_ints(list(range(1, LANES + 1)), [0] * LANES, [0] * LANES)
+        phase_service(proofs, vdf.eval(s0, 64), 64, card)
+    if "pipeline" in which:
+        phase_pipeline(proofs, stats, card)
+    if "mesh" in which:
+        phase_modes_mesh(torch.device("cuda", 0), proofs, card)
+
+
 def main() -> None:
     import torch
 
@@ -2011,9 +2420,14 @@ def main() -> None:
     msm_kernel_stats = phase_msm_kernels(device, MSM_CHECK_N, MSM_N, clock_hz)
     _, msm_launches = phase_msm(device, MSM_N, MSM_CHECK_N)
     _, engine_launches = phase_engine(ENGINE_T, ENGINE_STEPS)
-    _, ivc_launches, ivc_proofs = phase_ivc(IVC_T, IVC_STEPS, IVC_CHECK_STEPS, card)
+    ivc_stats, ivc_launches, ivc_proofs = phase_ivc(IVC_T, IVC_STEPS, IVC_CHECK_STEPS, card)
     _, compress_launches, compress_err = phase_compress(ivc_proofs, card)
+    _, service_launches = phase_service(ivc_proofs, main_stats.pop("result"), T, card)
+    _, pipeline_launches, interleaved_launches = phase_pipeline(ivc_proofs, ivc_stats, card)
+    _, mesh_launches = phase_modes_mesh(device, ivc_proofs, card)
     del ivc_proofs
+    slice_paths = {"service": service_launches, "pipeline": pipeline_launches,
+                   "interleaved": interleaved_launches, "mesh": mesh_launches}
 
     # Evidence: K1, K3-K7 and K9 were launched by the MSM and engine paths.
     moved = {k: msm_launches.get(k, 0) + engine_launches.get(k, 0) for k in engine_launches}
@@ -2064,20 +2478,23 @@ def main() -> None:
     kernels = [
         entry(name, "vdf_tpu_torch/csrc/minroot_kernels.cuh", replaces[name],
               {"minroot": main_stats["launches"][name], "engine": engine_launches[name],
-               "ivc": ivc_launches[name], "compress": compress_launches[name]},
+               "ivc": ivc_launches[name], "compress": compress_launches[name],
+               **{path: n[name] for path, n in slice_paths.items()}},
               st, {"lanes": st["lanes"], "t": st["t"], "field": "Fq"})
         for name, st in kernel_stats.items()
     ] + [
         entry(name, msm_src, COMMIT_KERNELS[name][1],
               {"commit": commit_launches[name], "msm": msm_launches[name],
                "engine": engine_launches[name], "ivc": ivc_launches[name],
-               "compress": compress_launches[name]},
+               "compress": compress_launches[name],
+               **{path: n[name] for path, n in slice_paths.items()}},
               st, {"n": COMMIT_N, "curve": "pallas", "batch": 1})
         for name, st in commit_kernel_stats.items()
     ] + [
         entry("horner", msm_src, "vdf_tpu/curves/pallas_msm.py:234",
               {"msm": msm_launches["horner"], "engine": engine_launches["horner"],
-               "ivc": ivc_launches["horner"], "compress": compress_launches["horner"]},
+               "ivc": ivc_launches["horner"], "compress": compress_launches["horner"],
+               **{path: n["horner"] for path, n in slice_paths.items()}},
               msm_kernel_stats["horner"], {"batch": 1, "curve": "pallas"}),
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 """The port stands alone: it imports without jax or vdf_tpu, and its
 native oracle is the JAX package's C++ source, byte for byte.  The ``gpu``
-tests prove and verify one step of the two-curve IVC on the card, and
-compress, serialize and verify that proof; they skip where
-``torch.cuda.is_available()`` is False:
+tests prove and verify one step of the two-curve IVC on the card, compress,
+serialize and verify that proof, and resume a device-engine checkpoint;
+they skip where ``torch.cuda.is_available()`` is False:
 
     python -m pytest tests/test_torch_package.py -q -m gpu --noconftest
 """
@@ -32,7 +32,10 @@ class Block:
 sys.meta_path.insert(0, Block())
 import vdf_tpu_torch
 from vdf_tpu_torch import _build, curves, device, interop, native, nova, poseidon, r1cs
-from vdf_tpu_torch import serialize, spartan
+from vdf_tpu_torch import checkpoint, config, parallel, serialize, spartan
+from vdf_tpu_torch.fields import chains
+from vdf_tpu_torch.nova import pipeline
+from vdf_tpu_torch.parallel import distributed, mesh
 from vdf_tpu_torch.curves import bucket_msm, kernels
 from vdf_tpu_torch.curves.msm import msm, msm_layout
 from vdf_tpu_torch.nova import augmented, circuit, compressed, ivc, nifs, r1cs_device, snark
@@ -52,6 +55,9 @@ assert int_poseidon._native_permute() is not None  # the native tier builds and 
 assert vdf_tpu_torch.commitment_key is nova.commitment_key
 assert vdf_tpu_torch.msm is msm and curves.msm is msm and vdf_tpu_torch.NovaVDFProof is snark.NovaVDFProof
 assert vdf_tpu_torch.default_device is device.default_device
+assert vdf_tpu_torch.ProverConfig is config.ProverConfig and nova.prove_stream is pipeline.prove_stream
+assert parallel.sharded_msm is mesh.sharded_msm and distributed.make_mesh is mesh.make_mesh
+assert checkpoint.save_ivc and chains.get_program(5, "rtl_add_chain")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("ok")
@@ -122,3 +128,29 @@ def test_compress_on_card():
     assert ivc_verify_compressed(pp, back, 2, z0, proof.z_i)
     assert not ivc_verify_compressed(pp, back, 3, z0, proof.z_i)
     assert CK.LAUNCHES["horner"] > 0
+
+
+@pytest.mark.gpu
+def test_resume_device_checkpoint_on_card(tmp_path):
+    """A device-engine chain at t = 1 checkpointed after one step, resumed
+    (verified first) and proven one step further: its handles are back on
+    the card and the proof is byte-equal to an uninterrupted chain's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    from vdf_tpu_torch import RecursiveIVC, ivc_public_params, serialize_ivc_proof
+    from vdf_tpu_torch.checkpoint import resume_ivc, save_ivc
+
+    pp = ivc_public_params(1)
+    z0 = [3, 4, 5]
+    full = RecursiveIVC(pp, z0)
+    full.prove_step()
+    full.prove_step()
+    want = serialize_ivc_proof(pp, full.proof())
+    part = RecursiveIVC(pp, z0)
+    part.prove_step()
+    path = tmp_path / "ivc.ckpt"
+    save_ivc(str(path), pp, part)
+    resumed = resume_ivc(str(path), pp)
+    assert resumed.r_W_primary.is_cuda and resumed.l_w_secondary.is_cuda
+    resumed.prove_step()
+    assert serialize_ivc_proof(pp, resumed.proof()) == want

@@ -24,7 +24,13 @@ reference.  This package imports neither jax nor vdf_tpu.  It holds:
     that replaces the IVC proof's witness vectors (``nova.ivc_compress``,
     ``nova.ivc_verify_compressed``; ``NovaVDFProof.compress`` for the
     single-curve engine), and the canonical byte form of both IVC proofs
-    (``serialize``), the JAX package's byte for byte.
+    (``serialize``), the JAX package's byte for byte;
+  * the service around them: proof-carrying checkpoints (``checkpoint``),
+    ``ProverConfig`` (``config``), the statement pipeline and interleaved
+    chains (``nova.prove_stream``, ``nova.prove_interleaved``), the four
+    ``EvalMode`` schedules and their addition chains (``fields.chains``),
+    and the multi-process entry on ``torch.distributed`` (``parallel``),
+    whose mesh the IVC takes for tensor parallelism.
 
 Every kernel is written by hand in CUDA C++ for sm_90a (csrc/) and built
 with nvcc at first use.  Top-level surface mirrors the reference's
@@ -32,6 +38,8 @@ with nvcc at first use.  Top-level surface mirrors the reference's
 """
 
 from . import curves, fields, minroot, nova, poseidon, r1cs, serialize, spartan  # noqa: F401
+from . import checkpoint, config, parallel  # noqa: F401
+from .config import ProverConfig  # noqa: F401
 from .curves import Curve, Point, get_curve, msm  # noqa: F401
 from .minroot import (  # noqa: F401
     EvalMode,

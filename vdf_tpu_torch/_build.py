@@ -24,6 +24,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 from .curves.point import B3
@@ -149,9 +150,10 @@ class Kernels:
     def error_string(self, err: int) -> str:
         return f"CUDA error {err}: {self.lib.vdf_error_string(err).decode()}"
 
-    def launch(self, name: str, device, *args) -> None:
+    def launch(self, name: str, device, *args) -> int:
         """Call launcher ``name`` with ``args`` and the current stream of the
-        CUDA ``device``; raise KernelError if CUDA refused the launch."""
+        CUDA ``device``; raise KernelError if CUDA refused the launch.
+        Returns the stream's handle."""
         import torch
 
         with torch.cuda.device(device):
@@ -159,6 +161,7 @@ class Kernels:
             err = getattr(self.lib, name)(*args, stream)
         if err:
             raise KernelError(f"{name} launch failed: {self.error_string(err)}")
+        return stream
 
 
 def _run_all(cmds: list[list[str]]) -> tuple[str, list[int]]:
@@ -212,7 +215,20 @@ def build(out_dir: pathlib.Path) -> tuple[pathlib.Path, float, str]:
     return lib_path, seconds, log
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.cache
-def load_kernels() -> Kernels:
-    """Build (first use) and load the kernel library."""
+def _load() -> Kernels:
     return Kernels(*build(BUILD_DIR / build_key()))
+
+
+def load_kernels() -> Kernels:
+    """Build (first use) and load the kernel library.  The first call builds
+    under a lock, so threads that launch at once (nova/pipeline.py) run
+    nvcc once between them; ``load_kernels.cache_clear()`` forgets it."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+load_kernels.cache_clear = _load.cache_clear

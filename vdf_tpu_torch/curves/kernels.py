@@ -46,12 +46,14 @@ Layouts (int32 limb bit patterns, points stacked ``(..., 3, 8)``):
                            first -> (B, 3, 8): sum_w 2^(12 w) S_w
 
 ``LAUNCHES`` counts wrapper calls that launched their kernel (K5 is three
-passes a call and K6 two, each counted once).
+passes a call and K6 two, each counted once), under a lock: threads launch
+at once (nova/pipeline.py).
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
@@ -114,9 +116,18 @@ LAUNCHES = {
 }
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(counter: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[counter] += 1
 
 
 # ---------------------------------------------------------------------
@@ -161,7 +172,7 @@ def _launch(name: str, counter: str, device: torch.device, *args) -> None:
     from .._build import load_kernels
 
     load_kernels().launch(name, device, *args)
-    LAUNCHES[counter] += 1
+    count_launch(counter)
 
 
 def _field_index(field_name: str) -> int:

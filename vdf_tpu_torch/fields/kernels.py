@@ -16,10 +16,16 @@ lanes, on any device; the CPU tests and chip_smoke.py hold the kernels
 against them.
 
 ``LAUNCHES`` counts the kernel launches, one per launch, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels; ``STREAMS`` counts them
+by the CUDA stream they went to (``(kernel, stream handle)`` -> launches),
+so a run can show which stream a launch used.  Both are updated under one
+lock: threads launch at once (nova/pipeline.py).
 """
 
 from __future__ import annotations
+
+import collections
+import threading
 
 import torch
 
@@ -28,11 +34,22 @@ from .ops import from_digits, get_field, to_digits
 from .params import FIELDS, NLIMBS
 
 LAUNCHES = {"minroot_eval": 0, "minroot_inverse": 0}
+STREAMS: collections.Counter = collections.Counter()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        STREAMS.clear()
+
+
+def count_launch(name: str, stream: int = 0) -> None:
+    """One launch of kernel ``name`` on the stream with handle ``stream``."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        STREAMS[name, stream] += 1
 
 
 def _check(field_name: str, t: int, tensors) -> None:
@@ -63,9 +80,9 @@ def _launch(name: str, field_name: str, x, y, i, t: int):
     outs = [torch.empty_like(a) for a in (x, y, i)]
     if x.shape[0] == 0:
         return tuple(outs)
-    kernels.launch(f"vdf_{name}", x.device, FIELD_INDEX[field_name],
-                   *(a.data_ptr() for a in (x, y, i, *outs)), x.shape[0], t)
-    LAUNCHES[name] += 1
+    stream = kernels.launch(f"vdf_{name}", x.device, FIELD_INDEX[field_name],
+                            *(a.data_ptr() for a in (x, y, i, *outs)), x.shape[0], t)
+    count_launch(name, stream)
     return tuple(outs)
 
 

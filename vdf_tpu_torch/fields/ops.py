@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .params import FIELDS, NLIMBS, FieldParams, int_to_limbs, window_digits
+from .params import FIELDS, NLIMBS, WINDOW, FieldParams, int_to_limbs, window_digits
 
 ND = 2 * NLIMBS  # 16-bit digits per element
 _DMASK = 0xFFFF
@@ -178,19 +178,20 @@ class Field:
         d2p = self.consts(a.device).d2p
         return self.canon16(resolve(a + (d2p - b)))  # a + 2p - b < 3p
 
-    def pow16(self, base: torch.Tensor, e: int) -> torch.Tensor:
-        """base^e (Montgomery), base < p, by the fixed w=4 window the
-        kernel runs (fields/kernels.py): a 16-entry table of powers, the
-        first digit seeds the accumulator, then per digit four squarings
-        and one multiply (none for a zero digit).  Output < p."""
+    def pow16(self, base: torch.Tensor, e: int, window: int = WINDOW) -> torch.Tensor:
+        """base^e (Montgomery), base < p, e > 0, by a fixed window, by
+        default the w=4 one the kernel runs (fields/kernels.py): a table of
+        the 2^window powers, the first digit seeds the accumulator, then per
+        digit ``window`` squarings and one multiply (none for a zero digit).
+        Output < p."""
         one = self.consts(base.device).one.expand_as(base)
         table = [one, base]
-        for _ in range(2, 16):
+        for _ in range(2, 1 << window):
             table.append(self.mul16(table[-1], base))
-        digits = window_digits(e)
+        digits = window_digits(e, window)
         acc = table[digits[0]]
         for d in digits[1:]:
-            for _ in range(4):
+            for _ in range(window):
                 acc = self.sqr16(acc)
             if d:
                 acc = self.mul16(acc, table[d])

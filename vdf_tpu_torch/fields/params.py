@@ -48,13 +48,13 @@ def limbs_to_int(limbs) -> int:
     return int.from_bytes(np.asarray(limbs).astype("<u4").tobytes(), "little")
 
 
-def window_digits(e: int) -> list[int]:
-    """Most-significant-first base-2^WINDOW digits of ``e``; the first
+def window_digits(e: int, window: int = WINDOW) -> list[int]:
+    """Most-significant-first base-2^window digits of ``e``; the first
     digit is nonzero and seeds the exponentiation's accumulator."""
     digits = []
     while e:
-        digits.append(e & ((1 << WINDOW) - 1))
-        e >>= WINDOW
+        digits.append(e & ((1 << window) - 1))
+        e >>= window
     return digits[::-1]
 
 

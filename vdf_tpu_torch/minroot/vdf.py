@@ -12,9 +12,12 @@ the main path: they go through fields/kernels.py, which launches the
 CUDA kernels K1/K2 for CUDA tensors and runs their plain versions for
 CPU tensors.
 
-``EvalMode`` is kept as a label.  The four reference strategies compute
-the identical trace; the kernels run one schedule (the w=4 fixed window)
-for all of them, as the TPU kernel did.
+``EvalMode`` selects the schedule of ``forward_step`` (and ``round``),
+as the JAX package's ``_MODE_IMPL`` does: an LTR window scan of width 1,
+4 or 5, or RTL binary (fields/chains.py); ``forward_step_unrolled`` runs
+the mode's addition-chain program.  The four strategies compute the
+identical trace.  ``eval`` runs K1, whose one schedule (the w=4 fixed
+window) serves every mode, as the TPU kernel's did.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from ..device import resolve_device
 from ..fields import Field, get_field
+from ..fields.chains import pow_fixed, pow_rtl, pow_window
 
 
 class EvalMode(str, enum.Enum):
@@ -39,6 +43,15 @@ class EvalMode(str, enum.Enum):
     @classmethod
     def all(cls) -> list["EvalMode"]:
         return list(cls)
+
+
+# mode -> (schedule, window): the JAX package's _MODE_IMPL
+_MODE_IMPL = {
+    EvalMode.LTR_SEQUENTIAL: ("ltr", 1),
+    EvalMode.LTR_ADD_CHAIN: ("ltr", 4),
+    EvalMode.RTL_SEQUENTIAL: ("rtl", None),
+    EvalMode.RTL_ADD_CHAIN: ("ltr", 5),
+}
 
 
 class State(NamedTuple):
@@ -66,8 +79,16 @@ class MinRootVDF:
     # -- steps and single rounds (plain tensor code, any device) --------
 
     def forward_step(self, x: torch.Tensor) -> torch.Tensor:
-        """x^invalpha — the slow 5th-root direction."""
-        return self.field.pow(x, self.field.params.inv_alpha)
+        """x^invalpha — the slow 5th-root direction, by the mode's schedule."""
+        kind, window = _MODE_IMPL[self.mode]
+        e = self.field.params.inv_alpha
+        if kind == "rtl":
+            return pow_rtl(self.field, x, e)
+        return pow_window(self.field, x, e, window)
+
+    def forward_step_unrolled(self, x: torch.Tensor) -> torch.Tensor:
+        """The mode's addition-chain program, op by op (fields/chains.py)."""
+        return pow_fixed(self.field, x, self.field.params.inv_alpha, self.mode.value)
 
     def inverse_step(self, x: torch.Tensor) -> torch.Tensor:
         """x^5 — the fast direction (x * (x^2)^2)."""

@@ -23,6 +23,7 @@ from .snark import (
     public_params,
 )
 from .compressed import CompressedIVCProof, ivc_compress, ivc_verify_compressed
+from .pipeline import StatementProof, VDFStatement, prove_interleaved, prove_stream
 
 __all__ = [
     "AugmentedCircuit",
@@ -58,4 +59,8 @@ __all__ = [
     "RecursiveSNARK",
     "eval_and_make_circuits",
     "public_params",
+    "StatementProof",
+    "VDFStatement",
+    "prove_interleaved",
+    "prove_stream",
 ]

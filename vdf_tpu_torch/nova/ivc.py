@@ -23,6 +23,12 @@ PublicParams / RecursiveSNARK, src/nova/proof.rs:232-237, 301-358,
     There is no automatic choice: with no card the device engine raises
     ``KernelError``, and only ``engine="native"`` or ``device="cpu"`` (the
     kernels' plain versions) runs without one.
+  * **Tensor parallelism** (the JAX package's ``mesh=``): a device engine
+    given a ``parallel.Mesh`` of more than one rank runs its matvecs as
+    ``sharded_matvec`` and its commits as ``sharded_msm`` over the rank's
+    block of the key's generators (the variable-base ``msm``, not the
+    fixed-base table), every rank proving the same chain.  At one rank, or
+    with no mesh, nothing changes.
 
 Chain invariant (established by nova/augmented.py, checked here):
 
@@ -257,6 +263,7 @@ class Side:
     # (= the other circuit's field, which re-derives the challenge)
     engine: str = "device"  # "device" | "native"
     device: torch.device | None = None  # the device engine's; None on "native"
+    mesh: object = None  # parallel.Mesh over the "shard" axis: TP for MSM/matvec
 
     def __post_init__(self):
         if self.engine not in ENGINES:
@@ -265,6 +272,10 @@ class Side:
     @property
     def use_device(self) -> bool:
         return self.engine == "device"
+
+    @property
+    def _use_tp(self) -> bool:
+        return self.use_device and self.mesh is not None and self.mesh.size > 1
 
     @functools.cached_property
     def host_plane(self) -> HostPlane:
@@ -331,8 +342,32 @@ class Side:
 
     def commit_w(self, w: torch.Tensor) -> tuple | None:
         """Pedersen commit of a Montgomery device handle -> affine ints."""
-        pt = self.ck.commit(w)
+        pt = self._tp_commit(w) if self._use_tp else self.ck.commit(w)
         return self._affine_of(type(pt)(*(v[None] for v in pt)))[0]
+
+    def _tp_commit(self, w: torch.Tensor):
+        """The commit under tensor parallelism: ``sharded_msm`` over the key's
+        generators, a block a rank."""
+        from ..parallel.mesh import sharded_msm
+
+        return sharded_msm(self.ck.curve, self.ck.gens, self._padded(w), self.mesh)
+
+    def _commit_pair(self, a: torch.Tensor, b: torch.Tensor):
+        """Two commits -> a Point of (2, 8): one K = 2 fixed-base pass, or
+        two sharded MSMs under tensor parallelism."""
+        if not self._use_tp:
+            return self.ck.commit_batch(torch.stack([self._padded(a), self._padded(b)]))
+        pts = [self._tp_commit(v) for v in (a, b)]
+        return type(pts[0])(*(torch.stack(c) for c in zip(*pts)))
+
+    def _matvecs(self, z: torch.Tensor) -> tuple:
+        """(Az, Bz, Cz), entry-sharded over the mesh under tensor parallelism."""
+        mats = (self.dev_shape.a, self.dev_shape.b, self.dev_shape.c)
+        if not self._use_tp:
+            return tuple(m.matvec(self.field, z) for m in mats)
+        from ..parallel.mesh import sharded_matvec
+
+        return tuple(sharded_matvec(self.field, m, z, self.mesh) for m in mats)
 
     def zero_w(self):
         if not self.use_device:
@@ -356,9 +391,7 @@ class Side:
     def _products(self, w, x, u) -> tuple:
         """(Az, Bz, Cz) of z = (w, u, x): seeds the cache for a nontrivial
         accumulator (the base step's lifted primary instance, a resume)."""
-        z = self.dev_shape.z_vector(self.field, w, x, u)
-        return tuple(m.matvec(self.field, z) for m in (self.dev_shape.a, self.dev_shape.b,
-                                                       self.dev_shape.c))
+        return self._matvecs(self.dev_shape.z_vector(self.field, w, x, u))
 
     def _zero_products(self) -> tuple:
         z = self.zero_e()
@@ -382,8 +415,7 @@ class Side:
         -> (w2 Montgomery, T, zp2, comm_W2, comm_T)."""
         w2 = self._lift(w2c.limbs)
         t, zp2 = self._cross(zp1, u1, w2, x2)
-        pts = self.ck.commit_batch(torch.stack([self._padded(w2), self._padded(t)]))
-        comm_w, comm_t = self._affine_of(pts)
+        comm_w, comm_t = self._affine_of(self._commit_pair(w2, t))
         return w2, t, zp2, comm_w, comm_t
 
     def _wfoldp(self, W1, E1, zp1, w2, t, zp2, r):
@@ -399,11 +431,9 @@ class Side:
         K = 2 commit (one read)."""
         if W.shape != (self.shape.num_aux, NLIMBS) or E.shape != (self.shape.num_cons, NLIMBS):
             return False
-        if not self.dev_shape.check_relaxed(self.field, W, E, x, u):
+        if not self.dev_shape.check_relaxed(self.field, W, E, x, u, self._matvecs):
             return False
-        got = self._affine_of(self.ck.commit_batch(torch.stack([self._padded(W),
-                                                                self._padded(E)])))
-        return got == [comm_w, comm_e]
+        return self._affine_of(self._commit_pair(W, E)) == [comm_w, comm_e]
 
     def check_sat(self, U, W, E) -> bool:
         comm_e = U.comm_e if isinstance(U, HostRelaxedInstance) else None
@@ -556,25 +586,34 @@ def _shapes(t: int):
 
 
 @functools.lru_cache(maxsize=8)
-def _public_params(t: int, engine: str, device: str | None) -> IVCParams:
+def _public_params(t: int, engine: str, device: str | None, mesh) -> IVCParams:
     primary_c, secondary_c, shape_p, shape_s, digest = _shapes(t)
     dev = None if device is None else torch.device(device)
-    primary = Side(primary_c, shape_p, get_field("Fq"), "pallas", "Fp", engine, dev)
-    secondary = Side(secondary_c, shape_s, get_field("Fp"), "vesta", "Fq", engine, dev)
+    primary = Side(primary_c, shape_p, get_field("Fq"), "pallas", "Fp", engine, dev, mesh)
+    secondary = Side(secondary_c, shape_s, get_field("Fp"), "vesta", "Fq", engine, dev, mesh)
     return IVCParams(t, primary, secondary, digest)
 
 
-def ivc_public_params(t: int, engine: str = "device", device=None) -> IVCParams:
+def ivc_public_params(t: int, engine: str = "device", device=None, mesh=None) -> IVCParams:
     """Synthesize both augmented shapes once; derive the params digest.
 
     ``engine``: "device" (the default) runs the data plane on ``device``
-    (None: the card, or ``KernelError`` where there is none); "native" runs
-    the host plane and ignores ``device``.  Cached per (t, engine, device);
-    a device engine's keys are ``commitment_key``'s, cached per device."""
+    (None: the card, or ``KernelError`` where there is none; with a mesh,
+    the mesh's device); "native" runs the host plane and ignores ``device``
+    and ``mesh``.  ``mesh``: an optional ``parallel.Mesh`` over the "shard"
+    axis; the device engine's MSMs and matvecs then run tensor-parallel
+    across it when it has more than one rank.  Cached per (t, engine,
+    device, mesh); a device engine's keys are ``commitment_key``'s, cached
+    per device."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-    dev = str(resolve_device(device)) if engine == "device" else None
-    return _public_params(t, engine, dev)
+    if engine != "device":
+        return _public_params(t, engine, None, None)
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+        device = mesh.device
+    return _public_params(t, engine, str(resolve_device(device)), mesh)
 
 
 # ---------------------------------------------------------------------

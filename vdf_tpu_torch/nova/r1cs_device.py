@@ -69,18 +69,21 @@ class DeviceShape:
         """z = (W, u, X) per Nova's layout."""
         return torch.cat([w, u[None], x], dim=0)
 
-    def check_relaxed_dev(self, field: Field, w, e, x, u) -> torch.Tensor:
-        """Az ∘ Bz == u·Cz + E; returns a bool tensor on the device."""
+    def check_relaxed_dev(self, field: Field, w, e, x, u, matvecs=None) -> torch.Tensor:
+        """Az ∘ Bz == u·Cz + E; returns a bool tensor on the device.
+        ``matvecs`` maps z to (Az, Bz, Cz) (default: this shape's matvecs;
+        the IVC passes its mesh-sharded ones under tensor parallelism)."""
         z = self.z_vector(field, w, x, u)
-        az = self.a.matvec(field, z)
-        bz = self.b.matvec(field, z)
-        cz = self.c.matvec(field, z)
+        if matvecs is None:
+            az, bz, cz = (m.matvec(field, z) for m in (self.a, self.b, self.c))
+        else:
+            az, bz, cz = matvecs(z)
         lhs = field.mul(az, bz)
         rhs = field.add(field.mul(u.expand_as(cz), cz), e)
         return field.eq(lhs, rhs).all()
 
-    def check_relaxed(self, field: Field, w, e, x, u) -> bool:
-        return bool(self.check_relaxed_dev(field, w, e, x, u))
+    def check_relaxed(self, field: Field, w, e, x, u, matvecs=None) -> bool:
+        return bool(self.check_relaxed_dev(field, w, e, x, u, matvecs))
 
     def cross_term(self, field: Field, z1, u1, z2, u2) -> torch.Tensor:
         """NIFS cross term: T = Az1∘Bz2 + Az2∘Bz1 − u1·Cz2 − u2·Cz1."""
