@@ -10,7 +10,9 @@ t = 32 iterations a step, 8 steps, keys of 2^14 on Pallas and Vesta, and
 its proof compressed (Spartan+IPA) and serialized; on the same params, the
 checkpointed and resumed chain, the statement pipeline, the interleaved
 chains (K = 4 and 8), the four EvalMode schedules and the sharded functions
-over an NCCL process group of one rank.
+over an NCCL process group of one rank; the dry-run entry (entry() and
+dryrun_multichip over one NCCL rank and over four gloo ranks sharing the
+card).
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -169,7 +171,21 @@ Phases (any failure exits non-zero; nothing is caught):
              n = 2^20 == msm on phase 9's inputs == the native Pippenger; ms
              of the sharded calls, one all_gather and one all_reduce; the
              launch counters of the sharded calls.  One card: no cross-card
-             NCCL time and no IVC tensor-parallel path is measured.
+             NCCL time is measured;
+ 17. dryrun  vdf_tpu_torch.entry with no device argument: entry()'s fn (K1,
+             one round on 128 lanes) == MinRootVDF.round (the plain version)
+             == Python-int MinRoot on every lane; dryrun_multichip(1) (NCCL,
+             one rank) and dryrun_multichip(4) (four gloo ranks sharing the
+             card: the reference's virtual mesh) at the reference's sizes:
+             DP eval + check on max(2n, 8) lanes, the sharded matvec of the
+             single-curve shape at t = 2, a NIFS fold of the real t = 1
+             augmented primary shape (fixed-base commit at one rank,
+             sharded_msm at four; a cold and a warm call) bit-equal to the
+             native fold, the MSM sweep of 1,024 points at N = 1, 2, 4, each
+             checked against host ints inside the ranks; each rank's set-up,
+             fold and sweep times and its launch counters by section (a
+             section's kernels must have launched); the launch counts of
+             entry's fn and every rank of both runs.
 
 The last lines are a JSON object of per-kernel evidence, the card's name
 and power limit, and the contract line
@@ -2026,6 +2042,7 @@ PIPE_STATEMENTS = 4  # phase 15: statements of IVC_STEPS steps each
 INTERLEAVED_K = (4, 8)  # phase 15: chains folded at once (bench.py:114)
 INTERLEAVED_RUNS = 3  # phase 15: runs of each K; the median, min and max are printed
 MESH_T = 1 << 10  # phase 16: rounds of sharded_eval / sharded_check
+DRYRUN_RANKS = (1, 4)  # phase 17: one NCCL rank; four gloo ranks sharing the card
 
 
 def _clock(fn):
@@ -2360,8 +2377,8 @@ def phase_modes_mesh(device, ivc: dict, card: str) -> tuple[dict, dict]:
     _log(f"mesh: sharded_msm {smsm_s * 1e3:.3f} ms beside msm {msm_s * 1e3:.3f} ms; one "
          f"all_gather of a point {gather_s * 1e3 / 20:.4f} ms, one all_reduce of an int64 "
          f"{reduce_s * 1e3 / 20:.4f} ms; {card}")
-    _log("mesh: one card: no cross-card NCCL time and no IVC tensor-parallel path (it needs two "
-         "or more ranks) is measured here")
+    _log("mesh: one card: no cross-card NCCL time is measured here, and the IVC's tensor-parallel "
+         "path (two or more ranks) runs in phase 17, on ranks sharing the card")
     _log("mesh: " + json.dumps(stats))
     _log(f"mesh: launches during the sharded calls {launches}")
     for kname in ("minroot_eval", "minroot_inverse", "canon_digits", "scan", "colscan", "bucket",
@@ -2371,9 +2388,74 @@ def phase_modes_mesh(device, ivc: dict, card: str) -> tuple[dict, dict]:
     return stats, launches
 
 
-def slice_phases(which=("service", "pipeline", "mesh")) -> None:
-    """Phases 14-16, any of them, after the build and phase 12 and nothing
-    else: ``python3 -c 'import chip_smoke as c; c.slice_phases(["pipeline"])'``.
+def phase_dryrun(card: str) -> tuple[dict, dict]:
+    """The dry-run entry, with no device argument.  entry()'s fn on its 128
+    lanes (K1) == MinRootVDF.round (the plain version) == Python-int MinRoot;
+    then dryrun_multichip(n) for each n of DRYRUN_RANKS at the reference's
+    sizes (the ranks check every section against host ints and that its
+    kernels launched).  Returns stats and the launch counts of entry's fn
+    and of every rank of every run (each rank's counters start at 0)."""
+    import torch
+
+    from vdf_tpu_torch import State, pallas_vdf
+    from vdf_tpu_torch.entry import FIXED_PATH, TP_PATH, dryrun_multichip, entry, minroot_oracle
+
+    fn, args = entry()
+    _reset_counts()
+    out, entry_s = _clock(lambda: fn(*args))
+    launches = _counts()  # of entry's fn alone
+    vdf = pallas_vdf()
+    f = vdf.field
+    if launches["minroot_eval"] != 1 or not all(a.is_cuda for a in (*args, *out)):
+        raise SystemExit(f"dryrun: entry()'s fn is not one K1 launch on the card: {launches}")
+    if not all(torch.equal(a, b) for a, b in zip(out, vdf.round(State(*args)))):
+        raise SystemExit("dryrun: entry()'s fn differs from MinRootVDF.round")
+    p, e = f.params.modulus, f.params.inv_alpha
+    lanes = args[0].shape[0]
+    if list(zip(*vdf.state_to_ints(State(*out)))) != \
+            [minroot_oracle(p, e, (x, 0, 0), 1) for x in range(1, lanes + 1)]:
+        raise SystemExit("dryrun: entry()'s fn differs from Python-int MinRoot")
+    _log(f"dryrun: entry()'s fn on {lanes} lanes == MinRootVDF.round == Python-int MinRoot; "
+         f"{entry_s * 1e3:.3f} ms with its launch")
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for n in DRYRUN_RANKS:
+        r = runs[n] = dryrun_multichip(n)
+        want = ("nccl", FIXED_PATH) if n <= torch.cuda.device_count() else ("gloo", TP_PATH)
+        if (r["backend"], r["tp_fold"]["path"]) != want or \
+                r["tp_fold"]["shape"] != "augmented t=1 primary":
+            raise SystemExit(f"dryrun: n={n} ran {r['backend']}, {r['tp_fold']['path']} on the "
+                             f"{r['tp_fold']['shape']} shape; want {want} on the augmented one")
+        for rank in r["ranks"]:
+            _log(f"dryrun: n={n} rank {rank['rank']} on {rank['device']}: launches by section "
+                 + json.dumps(rank["launches"]))
+            for counts in rank["launches"].values():
+                for kname, c in counts.items():
+                    launches[kname] += c
+    for kname in ("minroot_eval", "minroot_inverse", *COMMIT_KERNELS, "horner"):
+        if launches[kname] <= 0:
+            raise SystemExit(f"evidence: kernel {kname} was not launched by the dry run")
+    stats = {"card": card, "entry_fn_ms": entry_s * 1e3, "runs": {n: {
+        "backend": r["backend"], "total_s": r["total_s"], "fold": r["tp_fold"],
+        "sweep": r["sweep"], "scaling": r["scaling"],
+        "ranks": [{"rank": k["rank"], "joined_s": k["joined_s"], "wall_s": k["wall_s"],
+                   "matvec_setup_s": k["sections"]["matvec"]["setup_s"],
+                   "fold_synth_s": k["sections"]["tp_fold"]["synth_s"],
+                   "fold_keys_s": k["sections"]["tp_fold"]["keys_s"],
+                   "fold_s": k["sections"]["tp_fold"]["fold_s"],
+                   "warm_fold_s": k["sections"]["tp_fold"]["warm_fold_s"],
+                   "native_fold_s": k["sections"]["tp_fold"]["native_fold_s"]}
+                  for k in r["ranks"]]} for n, r in runs.items()}}
+    _log("dryrun: " + json.dumps(stats))
+    _log(f"dryrun: launches during entry's fn and every rank of the dry runs {launches}")
+    return stats, launches
+
+
+def slice_phases(which=("service", "pipeline", "mesh", "dryrun")) -> None:
+    """Phases 14-17, any of them, after the build and phase 12 (not needed by
+    17 alone) and nothing else:
+    ``python3 -c 'import chip_smoke as c; c.slice_phases(["pipeline"])'``.
     Phase 14's VDF checkpoint holds an 8,192-lane state at t = 64 here."""
     import torch
 
@@ -2381,6 +2463,9 @@ def slice_phases(which=("service", "pipeline", "mesh")) -> None:
 
     phase_build()
     card = _card()
+    if set(which) <= {"dryrun"}:
+        phase_dryrun(card)
+        return
     stats, _, proofs = phase_ivc(IVC_T, IVC_STEPS, IVC_CHECK_STEPS, card)
     if "service" in which:
         vdf = pallas_vdf()
@@ -2390,6 +2475,8 @@ def slice_phases(which=("service", "pipeline", "mesh")) -> None:
         phase_pipeline(proofs, stats, card)
     if "mesh" in which:
         phase_modes_mesh(torch.device("cuda", 0), proofs, card)
+    if "dryrun" in which:
+        phase_dryrun(card)
 
 
 def main() -> None:
@@ -2426,8 +2513,10 @@ def main() -> None:
     _, pipeline_launches, interleaved_launches = phase_pipeline(ivc_proofs, ivc_stats, card)
     _, mesh_launches = phase_modes_mesh(device, ivc_proofs, card)
     del ivc_proofs
+    _, dryrun_launches = phase_dryrun(card)
     slice_paths = {"service": service_launches, "pipeline": pipeline_launches,
-                   "interleaved": interleaved_launches, "mesh": mesh_launches}
+                   "interleaved": interleaved_launches, "mesh": mesh_launches,
+                   "dryrun": dryrun_launches}
 
     # Evidence: K1, K3-K7 and K9 were launched by the MSM and engine paths.
     moved = {k: msm_launches.get(k, 0) + engine_launches.get(k, 0) for k in engine_launches}

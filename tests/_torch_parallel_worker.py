@@ -1,13 +1,15 @@
 """Worker for tests/test_torch_parallel.py: one rank of a gloo process group.
 
 Joins the group through a ``file://`` store, builds the global mesh, and
-runs the port's sharded functions against host ints: ``sharded_eval`` and
-``sharded_check`` (K1/K2's plain versions on the rank's lanes),
-``sharded_matvec``, ``sharded_msm`` (the port's ``msm`` on the rank's
-block), and a tensor-parallel IVC fold on a 16-point key against the
-native fold.  Prints ``ok <check>`` for each check and ``PARALLEL_OK`` at
-the end.  Env: VDF_COORD, VDF_NPROC, VDF_PID.  Imports neither jax nor
-vdf_tpu.
+runs the port's sharded functions against host ints through the dry run's
+sections (``vdf_tpu_torch.entry``): ``section_dp`` (``sharded_eval`` and
+``sharded_check``, K1/K2's plain versions on the rank's lanes) and a
+tampered lane, ``section_matvec``, ``sharded_msm`` (the port's ``msm`` on
+the rank's block) at a padded length, and ``section_tp_fold`` (a
+tensor-parallel IVC fold on a 16-point key against the native fold) with a
+deferred-commit fold and its check_sat.  Prints ``ok <check>`` for each
+check and ``PARALLEL_OK`` at the end.  Env: VDF_COORD, VDF_NPROC, VDF_PID.
+Imports neither jax nor vdf_tpu.
 """
 
 from __future__ import annotations
@@ -25,65 +27,37 @@ import torch
 torch.set_num_threads(1)
 
 
-def _oracle(p: int, e: int, s: tuple, t: int) -> tuple:
-    x, y, i = s
-    for _ in range(t):
-        x, y, i = pow((x + y) % p, e, p), (x + i) % p, (i + 1) % p
-    return x, y, i
-
-
 def check_eval(mesh) -> None:
+    from vdf_tpu_torch.entry import DP_T, minroot_oracle, section_dp
     from vdf_tpu_torch.minroot import pallas_vdf
-    from vdf_tpu_torch.parallel import lane_sharding, sharded_check, sharded_eval
+    from vdf_tpu_torch.parallel import sharded_check
 
     vdf = pallas_vdf()
     f = vdf.field
     p, e = f.params.modulus, f.params.inv_alpha
     rng = random.Random(5)
     starts = [(rng.randrange(p), rng.randrange(p), k) for k in range(6)]
-    t = 2
-    s0 = vdf.state_from_ints(*(list(c) for c in zip(*starts)), device="cpu")
-    shard = sharded_eval(vdf, t, mesh)(s0)
-    want = [_oracle(p, e, s, t) for s in starts]
-    sl = lane_sharding(mesh, len(starts))
-    assert list(zip(*vdf.state_to_ints(shard))) == want[sl], "sharded_eval"
+    t = DP_T
+    assert section_dp(mesh, starts) == {"lanes": 6, "t": t, "valid": 6}
     print("ok eval", flush=True)
 
-    result = vdf.state_from_ints(*(list(c) for c in zip(*want)), device="cpu")
-    check = sharded_check(vdf, t, mesh)
-    assert check(result, s0) == 6, "sharded_check"
-    bad = list(want)
+    s0 = vdf.state_from_ints(*(list(c) for c in zip(*starts)), device="cpu")
+    bad = [minroot_oracle(p, e, s, t) for s in starts]
     bad[5] = (bad[5][0] ^ 1, *bad[5][1:])  # a lane of the last rank's block
+    check = sharded_check(vdf, t, mesh)
     assert check(vdf.state_from_ints(*(list(c) for c in zip(*bad)), device="cpu"), s0) == 5
     print("ok check", flush=True)
 
 
 def check_matvec(mesh) -> None:
-    from vdf_tpu_torch.fields import get_field
-    from vdf_tpu_torch.nova import InverseMinRootCircuit
-    from vdf_tpu_torch.nova.r1cs_device import DeviceShape
-    from vdf_tpu_torch.parallel import distributed, sharded_matvec
-    from vdf_tpu_torch.r1cs.cs import ShapeCS
-    from vdf_tpu_torch.r1cs.gadgets import AllocatedNum
+    from vdf_tpu_torch.entry import section_matvec
+    from vdf_tpu_torch.nova import public_params
 
-    f = get_field("Fq")
-    p = f.params.modulus
-    cs = ShapeCS(p)
-    z = [AllocatedNum.alloc_input(cs, n) for n in ("z_x", "z_y", "z_i")]
-    InverseMinRootCircuit(32).synthesize(cs, z)
-    shape = cs.shape()
-    dev = DeviceShape.build(f, shape, mesh.device)
+    pp = public_params(32, device="cpu")
     rng = random.Random(6)
-    z_ints = [rng.randrange(p) for _ in range(shape.num_vars)]
-    z_dev = distributed.replicate(mesh, f.encode(z_ints, "cpu").numpy())
-    for name, mat, coo in (("A", dev.a, shape.a_coo), ("B", dev.b, shape.b_coo),
-                           ("C", dev.c, shape.c_coo)):
-        want = [0] * shape.num_cons
-        for r, c, v in zip(*coo):
-            want[int(r)] = (want[int(r)] + int(v) * z_ints[int(c)]) % p
-        got = sharded_matvec(f, mat, z_dev, mesh)
-        assert f.decode(got) == want, f"sharded_matvec {name}"
-    print(f"ok matvec ({shape.num_cons} rows, {dev.a.rows.shape[0]} entries of A)", flush=True)
+    z = [rng.randrange(pp.field.params.modulus) for _ in range(pp.dev_shape.shape.num_vars)]
+    got = section_matvec(mesh, 32, z)
+    print(f"ok matvec ({got['rows']} rows, {got['entries']} entries of A, B and C)", flush=True)
 
 
 def check_msm(mesh) -> None:
@@ -106,8 +80,11 @@ def check_msm(mesh) -> None:
 
 
 def check_tp_fold(mesh) -> None:
-    """The device engine's fold with the mesh attached (sharded matvecs, two
-    sharded MSMs) equals the native fold, and its check_sat holds."""
+    """The dry run's TP fold section on a 16-point key (the reference's
+    inputs, a committed strict instance), then the device engine's fold of
+    a satisfying witness with its commit deferred (sharded matvecs, two
+    sharded MSMs) equal to the native fold, and its check_sat."""
+    from vdf_tpu_torch.entry import TP_PATH, bare_shape, section_tp_fold
     from vdf_tpu_torch.fields import get_field, get_int_field
     from vdf_tpu_torch.nova import InverseMinRootCircuit
     from vdf_tpu_torch.nova.ivc import (
@@ -117,17 +94,15 @@ def check_tp_fold(mesh) -> None:
         Side,
         ivc_public_params,
     )
-    from vdf_tpu_torch.r1cs.cs import ShapeCS, Variable
+    from vdf_tpu_torch.r1cs.cs import Variable
     from vdf_tpu_torch.r1cs.gadgets import AllocatedNum
     from vdf_tpu_torch.r1cs.witness import WitnessCS
 
+    got = section_tp_fold(mesh, fold_iters=2)
+    assert (got["key"], got["path"]) == (16, TP_PATH)
+
     fq = get_field("Fq")
-    p = get_int_field("Fq").p
-    cs = ShapeCS(p)  # InverseMinRootCircuit(2), z_x and z_y public: a key of 16
-    z = [AllocatedNum.alloc_input(cs, "z_x"), AllocatedNum.alloc_input(cs, "z_y"),
-         AllocatedNum(cs.alloc("z_i"))]
-    InverseMinRootCircuit(2).synthesize(cs, z)
-    shape = cs.shape()
+    shape = bare_shape(2)  # InverseMinRootCircuit(2), z_x and z_y public: a key of 16
     dev = Side(None, shape, fq, "pallas", "Fp", "device", mesh.device, mesh)
     nat = Side(None, shape, fq, "pallas", "Fp", "native")
     assert dev._use_tp and dev.ck.n == 16

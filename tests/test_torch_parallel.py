@@ -3,13 +3,15 @@ gloo ranks, mirroring tests/test_multihost.py.
 
 Two OS processes (tests/_torch_parallel_worker.py) join one process group
 through a ``file://`` store and run every sharded function against host
-ints: ``sharded_eval``/``sharded_check`` (K1/K2's plain versions on each
-rank's lanes, one all_reduce), ``sharded_matvec`` (one all_gather),
+ints, mostly through the dry run's sections (vdf_tpu_torch/entry.py):
+``sharded_eval``/``sharded_check`` (K1/K2's plain versions on each rank's
+lanes, one all_reduce), ``sharded_matvec`` (one all_gather),
 ``sharded_msm`` at 63 points (padded; the port's ``msm`` on each rank's
-block, one all_gather), and a tensor-parallel IVC fold on a 16-point key
-against the native fold, then its check_sat.  Each check below reads one
-line of both ranks' output.  Most of the ~2.5 min is the plain K6 of the
-five MSMs a rank runs (~25 s each on one core).
+block, one all_gather), and tensor-parallel IVC folds on a 16-point key
+against the native fold (the dry run's, twice, and a deferred-commit one
+with its check_sat).  Each check below reads one line of both ranks'
+output.  Most of the ~3 min is the plain K6 of the seven MSMs a rank runs
+(~25 s each on one core).
 """
 
 from __future__ import annotations
