@@ -5,14 +5,16 @@
 
 Main paths: MinRoot over Fq, t = 2^16 on 8,192 lanes; fixed-base commits at
 n = 2^14; the variable-base MSM at n = 2^20; the single-curve Nova folding
-engine at t = 1000 iterations a step, 2 steps; the two-curve Nova IVC at
+engine at t = 100 iterations a step, 2 steps; the two-curve Nova IVC at
 t = 32 iterations a step, 8 steps, keys of 2^14 on Pallas and Vesta, and
 its proof compressed (Spartan+IPA) and serialized; on the same params, the
 checkpointed and resumed chain, the statement pipeline, the interleaved
 chains (K = 4 and 8), the four EvalMode schedules and the sharded functions
 over an NCCL process group of one rank; the dry-run entry (entry() and
 dryrun_multichip over one NCCL rank and over four gloo ranks sharing the
-card).
+card); the bench entry (python -m vdf_tpu_torch.bench: the MinRoot and MSM
+sections at their default sizes, the folding headline at 4 steps with the
+reference sweep).
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -84,7 +86,7 @@ Phases (any failure exits non-zero; nothing is caught):
              == the native Pippenger; n = 1, n = 23 and a vector with P, -P,
              the identity, a repeat and zero scalars; wall and CUDA-event ms,
              and the stages of one msm from events recorded between them;
- 10. engine  public_params(1000) -> eval_and_make_circuits(vdf, 1000, 2, s0)
+ 10. engine  public_params(100) -> eval_and_make_circuits(vdf, 100, 2, s0)
              -> NovaVDFProof.prove_recursively -> proof.verify, all on the
              card with no device argument: verify is True; wrong num_steps,
              zi, z0, one changed limb of W.w and one changed step instance x
@@ -156,8 +158,8 @@ Phases (any failure exits non-zero; nothing is caught):
              counts launches by stream); prove_interleaved at K = 4 and K = 8
              chains of 8 steps (chain 0 from phase 12's z0) and at K = 1, the
              baseline through the same call: every chain verifies, chain 0 is
-             phase 12's proof byte for byte, aggregate folds/s (median of 3
-             runs, min, max) beside phase 12's single chain and native
+             phase 12's proof byte for byte, aggregate folds/s (one run a
+             K) beside phase 12's single chain and native
              engine; the launch counters of the first pipelined run and of
              the first interleaved run;
  16. modes and mesh  forward_step in each of the four EvalModes and
@@ -185,7 +187,21 @@ Phases (any failure exits non-zero; nothing is caught):
              checked against host ints inside the ranks; each rank's set-up,
              fold and sweep times and its launch counters by section (a
              section's kernels must have launched); the launch counts of
-             entry's fn and every rank of both runs.
+             entry's fn and every rank of both runs;
+ 18. bench   python -m vdf_tpu_torch.bench in a subprocess a run, as a caller
+             runs it, with no device argument: --minroot (16,384 lanes, 4
+             segments of t = 256 on K1, verify on K2, the latency point at
+             1,024 lanes, the four modes' eager programs on 2,048 lanes at
+             t = 64), --msm (n = 2^20 on the reference's inputs, checked
+             against the native Pippenger at 2^12, the native baseline at
+             2^20) and --folding --sweep --steps 4 --no-interleaved (t = 32 on
+             both engines, then (t, n) = (10, 200), (100, 20), (1000, 2)
+             proving 12, 12 and 4 steps on both engines, the last on a
+             primary key of 2^15): each exits 0 with a last line under 1,500
+             characters that carries its metric, value, vs_baseline and
+             native baseline, nothing skipped and no section error; the
+             launch counts of every run's sections, summed (every kernel
+             must have launched).
 
 The last lines are a JSON object of per-kernel evidence, the card's name
 and power limit, and the contract line
@@ -217,7 +233,9 @@ MSM_N = 1 << 20  # variable-base MSM length (BASELINE config 5)
 MSM_CHECK_N = 1 << 12  # kernel-vs-plain and native-check MSM length
 MSM_BASE = 1024  # distinct base points of the MSM inputs, repeated to n
 REPEATS = 20  # launches of K4-K6 and K9 on the same inputs that must agree bit for bit
-ENGINE_T = 1000  # MinRoot iterations a Nova step (the reference sweep point)
+# MinRoot iterations a Nova step of the single-curve engine; the reference sweep
+# point (1000, 2) runs on the two-curve IVC in phase 18's bench.
+ENGINE_T = 100
 ENGINE_STEPS = 2  # Nova steps
 IVC_T = 32  # MinRoot iterations a step of the two-curve IVC (the bench IVC, bench.py:158)
 IVC_STEPS = 8  # its steps (bench.py:158): base step + 7 prove steps
@@ -252,8 +270,11 @@ COMMIT_KERNELS = {  # launch counter -> (wrapper in curves/kernels.py, TPU kerne
 }
 
 
+_T0 = time.monotonic()
+
+
 def _log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.monotonic() - _T0:7.1f}s] {msg}", flush=True)
 
 
 def _xorshift_ints(n: int, modulus: int, rng) -> list[int]:
@@ -767,7 +788,7 @@ def _shift_launch(bf: str, gens, form: str, out=None):
 
 
 SHIFT_CHECK_N = (1, 127, 129, 4096, 1 << 14)  # K7 against plain in both forms
-SHIFT_TIMED_N = (4096, 1 << 14)  # the engine's key, a commit's
+SHIFT_TIMED_N = (4096, 1 << 14)  # the engine's key at t = 1000, a commit's
 
 
 def _shift_forms(device, err: dict) -> dict:
@@ -2040,7 +2061,7 @@ def phase_compress(ivc: dict, card: str) -> tuple[dict, dict, dict]:
 SAVE_AT = 3  # phase 14: the steps proven before the checkpoint is written
 PIPE_STATEMENTS = 4  # phase 15: statements of IVC_STEPS steps each
 INTERLEAVED_K = (4, 8)  # phase 15: chains folded at once (bench.py:114)
-INTERLEAVED_RUNS = 3  # phase 15: runs of each K; the median, min and max are printed
+INTERLEAVED_RUNS = 1  # phase 15: runs of each K (the bench's default run times K = 4, 8)
 MESH_T = 1 << 10  # phase 16: rounds of sharded_eval / sharded_check
 DRYRUN_RANKS = (1, 4)  # phase 17: one NCCL rank; four gloo ranks sharing the card
 
@@ -2452,9 +2473,88 @@ def phase_dryrun(card: str) -> tuple[dict, dict]:
     return stats, launches
 
 
-def slice_phases(which=("service", "pipeline", "mesh", "dryrun")) -> None:
-    """Phases 14-17, any of them, after the build and phase 12 (not needed by
-    17 alone) and nothing else:
+BENCH_RUNS = (  # phase 18: (section, arguments of python -m vdf_tpu_torch.bench)
+    ("minroot", ["--minroot"]),
+    ("msm", ["--msm"]),
+    ("folding", ["--folding", "--sweep", "--steps", "4", "--no-interleaved"]),
+)
+BENCH_METRICS = {"minroot": "minroot_aggregate_iters_per_sec",
+                 "msm": "msm_points_per_sec_per_chip", "folding": "nova_folding_steps_per_sec"}
+BENCH_TIMEOUT_S = 600  # a run's own budget is 600 s
+
+
+def _bench_run(name: str, argv: list) -> tuple[dict, dict, float]:
+    """One ``python -m vdf_tpu_torch.bench`` run in a subprocess, as a caller
+    runs it: exit 0, a last line under 1,500 characters with the section's
+    metric, value, vs_baseline and native baseline, nothing skipped and no
+    section error.  Returns (last line, full line before it, wall s)."""
+    from vdf_tpu_torch.bench import LAST_LINE_MAX
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vdf_tpu_torch.bench", *argv],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) < 2:
+        raise SystemExit(f"bench {name}: exit {proc.returncode}; stdout tail:\n"
+                         f"{proc.stdout[-3000:]}\nstderr tail:\n{proc.stderr[-3000:]}")
+    if len(lines[-1]) >= LAST_LINE_MAX:
+        raise SystemExit(f"bench {name}: the last line has {len(lines[-1])} characters")
+    last, full = json.loads(lines[-1]), json.loads(lines[-2])
+    d = last["detail"]
+    if (last["metric"] != BENCH_METRICS[name] or not last["value"] > 0
+            or last["vs_baseline"] is None or not d[name]["baseline"] > 0
+            or d["skipped"] or d["section_errors"] or d["backend"] != "gpu"):
+        raise SystemExit(f"bench {name}: the last line does not carry a whole run: {lines[-1]}")
+    _log(f"bench: {' '.join(argv)}: exit 0 in {wall:.1f} s; last line ({len(lines[-1])} "
+         f"characters) {lines[-1]}")
+    return last, full, wall
+
+
+def phase_bench(card: str) -> tuple[dict, dict]:
+    """The port's bench entry, each of BENCH_RUNS in a subprocess with no
+    device argument: --minroot and --msm at their default sizes, and the
+    folding headline at 4 steps with the reference sweep, (1000, 2)
+    included, without the interleaved stage.  Each run exits 0 with a whole
+    last line; the full line shows the gates held (the folding proofs
+    verified on both engines at every point, the msm equal to the native
+    Pippenger at 2^12, the MinRoot lanes, the latency point and every mode
+    against host ints) and every kernel of the repo launched.  Returns stats
+    and the launch counts summed over the runs' sections."""
+    launches = dict.fromkeys(_counts(), 0)
+    stats = {"card": card}
+    for name, argv in BENCH_RUNS:
+        last, full, wall = _bench_run(name, argv)
+        d = full["detail"]
+        for counts in d["launches"].values():
+            for kname, c in counts.items():
+                launches[kname] += c
+        if name == "folding":
+            sweep = [(p["t"], p["keys"]) for p in d["sweep"]]
+            if not d["verified"] or sweep != [(10, [1 << 14] * 2), (100, [1 << 14] * 2),
+                                              (1000, [1 << 15, 1 << 14])]:
+                raise SystemExit(f"bench folding: the sweep ran {sweep}")
+        if name == "msm" and (d["points"], d["oracle_checked_at"]) != (MSM_N, MSM_CHECK_N):
+            raise SystemExit(f"bench msm: {d['points']} points, checked at "
+                             f"{d['oracle_checked_at']}")
+        if name == "minroot" and (len(d["per_mode_eval"]) != 4
+                                  or d["latency_iters_per_sec_per_lane_at_1024"] is None):
+            raise SystemExit(f"bench minroot: per-mode table {d['per_mode_eval']}, latency point "
+                             f"{d['latency_iters_per_sec_per_lane_at_1024']}")
+        stats[name] = {"wall_s": wall, "last_line": last, "sections": d["section_wall_seconds"],
+                       "build_s": d["build_seconds"]}
+        _log(f"bench: {name} full line " + json.dumps(full))
+    for kname in ("minroot_eval", "minroot_inverse", *COMMIT_KERNELS, "horner"):
+        if launches[kname] <= 0:
+            raise SystemExit(f"evidence: kernel {kname} was not launched by the bench runs")
+    _log(f"bench: launches summed over the runs' sections {launches}")
+    return stats, launches
+
+
+def slice_phases(which=("service", "pipeline", "mesh", "dryrun", "bench")) -> None:
+    """Phases 14-18, any of them, after the build and phase 12 (not needed by
+    17 and 18 alone) and nothing else:
     ``python3 -c 'import chip_smoke as c; c.slice_phases(["pipeline"])'``.
     Phase 14's VDF checkpoint holds an 8,192-lane state at t = 64 here."""
     import torch
@@ -2463,8 +2563,11 @@ def slice_phases(which=("service", "pipeline", "mesh", "dryrun")) -> None:
 
     phase_build()
     card = _card()
-    if set(which) <= {"dryrun"}:
-        phase_dryrun(card)
+    if set(which) <= {"dryrun", "bench"}:
+        if "dryrun" in which:
+            phase_dryrun(card)
+        if "bench" in which:
+            phase_bench(card)
         return
     stats, _, proofs = phase_ivc(IVC_T, IVC_STEPS, IVC_CHECK_STEPS, card)
     if "service" in which:
@@ -2477,6 +2580,8 @@ def slice_phases(which=("service", "pipeline", "mesh", "dryrun")) -> None:
         phase_modes_mesh(torch.device("cuda", 0), proofs, card)
     if "dryrun" in which:
         phase_dryrun(card)
+    if "bench" in which:
+        phase_bench(card)
 
 
 def main() -> None:
@@ -2514,9 +2619,10 @@ def main() -> None:
     _, mesh_launches = phase_modes_mesh(device, ivc_proofs, card)
     del ivc_proofs
     _, dryrun_launches = phase_dryrun(card)
+    _, bench_launches = phase_bench(card)
     slice_paths = {"service": service_launches, "pipeline": pipeline_launches,
                    "interleaved": interleaved_launches, "mesh": mesh_launches,
-                   "dryrun": dryrun_launches}
+                   "dryrun": dryrun_launches, "bench": bench_launches}
 
     # Evidence: K1, K3-K7 and K9 were launched by the MSM and engine paths.
     moved = {k: msm_launches.get(k, 0) + engine_launches.get(k, 0) for k in engine_launches}

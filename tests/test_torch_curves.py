@@ -163,3 +163,20 @@ def test_hash_to_curve_and_key_generators_match_jax(curve_name):
     carried = interop.commitment_key_from_jax(jck, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(carried.gens, ck.gens))
     assert all(torch.equal(a, b) for a, b in zip(carried.h, ck.h))
+
+
+@pytest.mark.parametrize("field_name", ["Fp", "Fq"])
+def test_sqrt_mod_matches_jax(field_name):
+    """One exponentiation a candidate: the same root as the JAX package's
+    Tonelli–Shanks, and None for exactly its non-residues."""
+    from vdf_tpu.curves.point import sqrt_mod as jax_sqrt_mod
+    from vdf_tpu_torch.curves import sqrt_mod
+    from vdf_tpu_torch.fields import get_field
+
+    p = get_field(field_name).params.modulus
+    rng = np.random.default_rng(5)
+    values = [0, 1, 4, 5, p - 1] + [int.from_bytes(rng.bytes(32), "little") % p
+                                    for _ in range(200)]
+    got = [sqrt_mod(a, p) for a in values]
+    assert got == [jax_sqrt_mod(a, p) for a in values]
+    assert None in got and all(r is None or r * r % p == a for r, a in zip(got, values))

@@ -32,7 +32,7 @@ class Block:
 sys.meta_path.insert(0, Block())
 import vdf_tpu_torch
 from vdf_tpu_torch import _build, curves, device, interop, native, nova, poseidon, r1cs
-from vdf_tpu_torch import checkpoint, config, entry, parallel, serialize, spartan
+from vdf_tpu_torch import bench, checkpoint, config, entry, parallel, serialize, spartan
 from vdf_tpu_torch.fields import chains
 from vdf_tpu_torch.nova import pipeline
 from vdf_tpu_torch.parallel import distributed, mesh
@@ -59,6 +59,7 @@ assert vdf_tpu_torch.ProverConfig is config.ProverConfig and nova.prove_stream i
 assert parallel.sharded_msm is mesh.sharded_msm and distributed.make_mesh is mesh.make_mesh
 assert checkpoint.save_ivc and chains.get_program(5, "rtl_add_chain")
 assert entry.dryrun_multichip and entry.entry
+assert bench.main and bench.msm_inputs
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("ok")

@@ -270,28 +270,40 @@ def get_curve(name: str) -> Curve:
 # ---------------------------------------------------------------------
 
 
-def sqrt_mod(a: int, p: int) -> int | None:
-    """Tonelli–Shanks square root mod p (None if non-residue)."""
-    a %= p
-    if a == 0:
-        return 0
-    if pow(a, (p - 1) // 2, p) != 1:
-        return None
-    # p - 1 = q * 2^s
+@functools.cache
+def _tonelli_constants(p: int) -> tuple[int, int, int]:
+    """(q, s, c) with p - 1 = q 2^s, q odd, and c = z^q for the least
+    non-residue z."""
     q, s = p - 1, 0
     while q % 2 == 0:
         q //= 2
         s += 1
-    # find a non-residue
     z = 2
     while pow(z, (p - 1) // 2, p) != p - 1:
         z += 1
-    m, c, t, r = s, pow(z, q, p), pow(a, q, p), pow(a, (q + 1) // 2, p)
+    return q, s, pow(z, q, p)
+
+
+def sqrt_mod(a: int, p: int) -> int | None:
+    """Tonelli–Shanks square root mod p (None if non-residue).
+
+    One exponentiation, w = a^((q-1)/2), gives both r = a^((q+1)/2) and
+    t = a^q; a is a non-residue exactly when t has order 2^s, which the
+    first pass of squarings finds, so no separate Euler test is made."""
+    a %= p
+    if a == 0:
+        return 0
+    q, m, c = _tonelli_constants(p)
+    w = pow(a, (q - 1) // 2, p)
+    r = a * w % p
+    t = r * w % p
     while t != 1:
         i, tt = 0, t
         while tt != 1:
             tt = tt * tt % p
             i += 1
+            if i == m:
+                return None
         b = pow(c, 1 << (m - i - 1), p)
         m, c = i, b * b % p
         t = t * c % p
