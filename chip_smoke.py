@@ -117,8 +117,23 @@ Phases (any failure exits non-zero; nothing is caught):
              of the 6 steps after the first, min and max), the device
              engine's split by phase a step and a fold's parts, beside the
              card's name and power limit; the launch
-             counters of K1 and K3-K7 moved between the eval and the end of
-             verify (read before the other checks);
+             counters of K1, K3-K7, K10 and K12 moved between the eval and
+             the end of verify (read before the other checks), and no
+             digit-level field call (fields/ops.py's counter) ran on the card
+             in the prove steps and ivc_verify;
+ 12b. field kernels  K10 (field_ew: add, sub, mul, sqr, neg, canon and the
+             fold a + r b), K11 (field_segsum) and K12 (r1cs_matvec) against
+             their plain versions on the card, on Fp and Fq, at the main
+             path's shapes from phase 12's params: the cross term's
+             (3, num_cons) operands (any 256-bit patterns, the corners 0, 1,
+             p - 1, p and 2^256 - 1 first), the folds of W and of the stacked
+             rest with r one element, the outer sumcheck's and the IPA's
+             equal segments (4 and 2 of 2^13), the gamma-matvec's column
+             segments, segments of 2^16 copies of p - 1 and of 2^256 - 1, A, B
+             and C of both sides and rows of 2^15 entries: bit for bit; each
+             case's device ms (20 calls captured in one CUDA graph, replayed),
+             its eager ms (5 calls between CUDA events, issued by the host),
+             the wrapper's host ms, the plain version's ms and its bound;
  13. compress phase 12's device params and 8-step proof: each key with h
              appended (K7 on h), ivc_compress and ivc_verify_compressed True,
              each timed between two synchronisations; serialize_compressed
@@ -129,7 +144,9 @@ Phases (any failure exits non-zero; nothing is caught):
              a wrong zn, a changed sumcheck message, vW + 1 and a swapped
              IPA point rejected, a truncated blob refused; the launch
              counters of K3-K6 and K9 moved during h tables -> compress ->
-             verify (read before the other checks); compress s, verify s,
+             verify (read before the other checks), K10-K12 among them, and
+             no digit-level field call on the card in compress and verify;
+             compress s, verify s,
              bytes and the split of an instrumented compress by part
              (ivc_compress's PhaseTimer spans: closing fold; a side's outer
              sumcheck, gamma-matvec, inner sumcheck, two IPAs) beside the
@@ -172,7 +189,8 @@ Phases (any failure exits non-zero; nothing is caught):
              primary A, B and C == DeviceMatrix.matvec, sharded_msm at
              n = 2^20 == msm on phase 9's inputs == the native Pippenger; ms
              of the sharded calls, one all_gather and one all_reduce; the
-             launch counters of the sharded calls.  One card: no cross-card
+             launch counters of the mode programs (K10 must have launched)
+             and of the sharded calls (K12 among them).  One card: no cross-card
              NCCL time is measured;
  17. dryrun  vdf_tpu_torch.entry with no device argument: entry()'s fn (K1,
              one round on 128 lanes) == MinRootVDF.round (the plain version)
@@ -201,7 +219,8 @@ Phases (any failure exits non-zero; nothing is caught):
              characters that carries its metric, value, vs_baseline and
              native baseline, nothing skipped and no section error; the
              launch counts of every run's sections, summed (every kernel
-             must have launched).
+             must have launched, K10 and K12 too; K11 runs on compression
+             alone).
 
 The last lines are a JSON object of per-kernel evidence, the card's name
 and power limit, and the contract line
@@ -259,6 +278,21 @@ MADS_PER_SQUARING = 2 * (36 + 24)
 # small-constant multiply (a row of 8 multiplies and a subtraction), counted
 # with the additions, which the bound leaves out.
 PRODUCTS_ADD, PRODUCTS_DBL = (0, 12), (2, 6)
+
+# The device plane's field kernels K10-K12 (csrc/field_ops.cuh): launch counter ->
+# (wrapper in fields/kernels.py, the XLA code of the reference it stands for).  None
+# replaces a Pallas kernel: the reference compiles this arithmetic with XLA.
+FIELD_KERNELS = {
+    "field_ew": ("field_ew", "vdf_tpu/fields/ops.py:287"),  # K10 (mul; add :182, sub :200, ...)
+    "field_segsum": ("field_segsum", "vdf_tpu/spartan/sumcheck.py:20"),  # K11
+    "r1cs_matvec": ("r1cs_matvec", "vdf_tpu/nova/r1cs_device.py:28"),  # K12
+}
+FIELD_SRC = "vdf_tpu_torch/csrc/field_ops.cuh"
+# The kernels of K10-K12 each main path must launch.
+FIELD_PATHS = {"ivc": ("field_ew", "r1cs_matvec"),
+               "compress": ("field_ew", "field_segsum", "r1cs_matvec"),
+               "modes": ("field_ew",), "bench": ("field_ew", "r1cs_matvec")}
+SEGSUM_LONG = 1 << 16  # K11's long segments: 2^16 copies of p - 1, of 2^256 - 1
 
 COMMIT_KERNELS = {  # launch counter -> (wrapper in curves/kernels.py, TPU kernel it replaces)
     "canon_digits": ("canon_digits", "vdf_tpu/curves/pallas_msm.py:130"),  # K3 mode 0
@@ -373,6 +407,13 @@ def _kernel_products(kname: str, args, out) -> tuple[int, int]:
     if kname == "horner":
         b = args[1].shape[0]
         return _point_ops(b * CK.WINDOWS, b * CK.WINDOWS * CK.WINDOW_BITS)
+    if kname == "field_ew":  # (field, op, *operands): a product an element for mul and fold
+        n = out.numel() // 8
+        return (n, 0) if args[1] == "sqr" else (0, n if args[1] in ("mul", "fold") else 0)
+    if kname == "field_segsum":  # additions only
+        return 0, 0
+    if kname == "r1cs_matvec":  # (field, offsets, cols, vals, z): a product an entry
+        return 0, args[3].shape[0]
     raise SystemExit(f"no operation count for kernel {kname}")
 
 
@@ -554,8 +595,8 @@ def phase_main(device, lanes: int, t: int, t_append: int) -> dict:
         raise SystemExit("main: two-segment append did not verify")
     torch.cuda.synchronize()
     _log(f"main: launches during the main path (one eval, one verify) {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("minroot_eval", "minroot_inverse"):
+        if launches[name] <= 0:
             raise SystemExit(f"evidence: kernel {name} was not launched by the main path")
 
     got = vdf.state_to_ints(proof.result)
@@ -1717,6 +1758,7 @@ def phase_ivc(t: int, steps: int, check_steps: int, card: str) -> tuple[dict, di
     )
     from vdf_tpu_torch.curves import kernels as CK
     from vdf_tpu_torch.fields import kernels as FK
+    from vdf_tpu_torch.fields import ops as FO
     from vdf_tpu_torch.nova import pedersen
     from vdf_tpu_torch.utils import TEST_SEED, XorShiftRng, field_random
 
@@ -1755,6 +1797,7 @@ def phase_ivc(t: int, steps: int, check_steps: int, card: str) -> tuple[dict, di
     if pp.primary.ck.n != COMMIT_N or pp.secondary.ck.n != COMMIT_N:
         raise SystemExit(f"ivc: keys of {pp.primary.ck.n} and {pp.secondary.ck.n}, not {COMMIT_N}")
 
+    FO.reset_digit_calls()
     prover, base_s, step_s, split, per_step, _ = _prove_timed(pp, z0, steps)
     t0 = time.perf_counter()
     proof = prover.proof()
@@ -1762,6 +1805,7 @@ def phase_ivc(t: int, steps: int, check_steps: int, card: str) -> tuple[dict, di
     torch.cuda.synchronize()
     verify_s = time.perf_counter() - t0
     launches = {**FK.LAUNCHES, **CK.LAUNCHES}  # of eval, set-up, prove and verify alone
+    digit_calls = FO.digit_calls()  # of the prove steps and verify alone
     if not ok:
         raise SystemExit("ivc: ivc_verify is False")
     if proof.z_i != start:
@@ -1827,9 +1871,13 @@ def phase_ivc(t: int, steps: int, check_steps: int, card: str) -> tuple[dict, di
     _log(f"ivc: the device and native engines' {check_steps}-step proofs are equal field by "
          f"field (instances, z_i, every witness)")
 
-    for kname in ("minroot_eval", *COMMIT_KERNELS):
+    for kname in ("minroot_eval", *COMMIT_KERNELS, *FIELD_PATHS["ivc"]):
         if launches[kname] <= 0:
             raise SystemExit(f"evidence: kernel {kname} was not launched by the IVC main path")
+    if digit_calls:
+        raise SystemExit(f"evidence: {digit_calls} digit-level field calls on the card during "
+                         f"the prove steps and ivc_verify: a caller was left on the plain path")
+    _log("ivc: no digit-level field call on the card during the prove steps and ivc_verify")
     stats = {"t": t, "steps": steps, "card": card,
              "constraints": [pp.primary.shape.num_cons, pp.secondary.shape.num_cons],
              "key_n": COMMIT_N, "eval_s": eval_s, "setup_s": setup, "base_step_s": base_s,
@@ -1954,6 +2002,7 @@ def phase_compress(ivc: dict, card: str) -> tuple[dict, dict, dict]:
     )
     from vdf_tpu_torch.curves import kernels as CK
     from vdf_tpu_torch.fields import kernels as FK
+    from vdf_tpu_torch.fields import ops as FO
     from vdf_tpu_torch.spartan import SpartanProof
     from vdf_tpu_torch.utils.profiling import PhaseTimer
 
@@ -1968,18 +2017,27 @@ def phase_compress(ivc: dict, card: str) -> tuple[dict, dict, dict]:
 
     FK.reset_launches()
     CK.reset_launches()
+    FO.reset_digit_calls()
     # Set-up: each key with h appended (K7 on h, the table copied once).
     _, h_tables_s = clock(lambda: [side.ck.with_h.table for side in (pp.primary, pp.secondary)])
     cp, compress_s = clock(lambda: ivc_compress(pp, proof))
     ok, verify_s = clock(lambda: ivc_verify_compressed(pp, cp, steps, z0, start))
     launches = {**FK.LAUNCHES, **CK.LAUNCHES}  # of set-up, compress and verify alone
+    digit_calls = FO.digit_calls()
     if not ok:
         raise SystemExit("compress: ivc_verify_compressed is False")
     if not isinstance(cp.spartan_primary, SpartanProof) or not cp.spartan_primary.vW.is_cuda:
         raise SystemExit("compress: the device engine's argument is not on the card")
-    for kname in ("canon_digits", "scan", "colscan", "bucket", "horner"):
+    for kname in ("canon_digits", "scan", "colscan", "bucket", "horner",
+                  *FIELD_PATHS["compress"]):
         if launches[kname] <= 0:
             raise SystemExit(f"evidence: kernel {kname} was not launched by the compress path")
+    if digit_calls:
+        raise SystemExit(f"evidence: {digit_calls} digit-level field calls on the card during "
+                         f"ivc_compress and ivc_verify_compressed: a caller was left on the "
+                         f"plain path")
+    _log("compress: no digit-level field call on the card during ivc_compress and "
+         "ivc_verify_compressed")
     blob, serialize_s = clock(lambda: serialize_compressed(pp, cp))
     back, deserialize_s = clock(lambda: deserialize_compressed(pp, blob))
     if not ivc_verify_compressed(pp, back, steps, z0, start):
@@ -2056,6 +2114,181 @@ def phase_compress(ivc: dict, card: str) -> tuple[dict, dict, dict]:
     _log(f"compress: launches during the compress main path (h tables, compress, verify) "
          f"{launches}")
     return stats, launches, err
+
+
+def _field_limbs(p: int, n: int, seed: int, device, canonical: bool = False):
+    """(n, 8) int32 limbs from numpy's default_rng(seed), the corners 0, 1,
+    p - 1, p, 2^256 - 1 first: canonical (the top limb below 2^30, so every
+    value is below 2^254 < p) or any 256-bit pattern."""
+    import numpy as np
+    import torch
+
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+    if canonical:
+        w[:, 7] &= (1 << 30) - 1
+    corner = [0, p - 1] if canonical else [0, 1, p - 1, p, (1 << 256) - 1]
+    for k, v in enumerate(corner[:n]):
+        w[k] = [(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
+
+
+GRAPH_CALLS = 20  # K10-K12 calls captured in one CUDA graph to time the kernel itself
+
+
+def _graph_ms(fn, args, calls: int = GRAPH_CALLS) -> float:
+    """Device ms a call of ``fn(*args)``: ``calls`` calls captured in one CUDA
+    graph, replayed between two CUDA events, so the card runs the launches
+    back to back and the host's cost a call (the wrapper's Python, tens of
+    microseconds) is not in the time."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn(*args)
+    graph.replay()  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _field_case(kname: str, fn, args, plain, plain_args, bound_args, clock_hz: float,
+                reps: int = 5) -> dict:
+    """One K10-K12 call against its plain version on the same CUDA tensors:
+    max_abs_err (must be 0); ms, the kernel's device time a call (CUDA graph
+    replay, ``_graph_ms``); eager_ms, ``reps`` eager calls between CUDA events
+    (after a warm-up), what a caller gets while the host issues the
+    launches; wall_ms, the wrapper's host time a call (``reps`` calls, no
+    synchronisation between them); the plain version's card ms; the bound."""
+    import torch
+
+    eager_ms, out = _cuda_ms(fn, args, reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    ms = _graph_ms(fn, args)
+    plain_ms, want = _cuda_ms(plain, plain_args, 1)
+    err = _max_abs_err(out, want)
+    if err:
+        raise SystemExit(f"{kname} at {tuple(out.shape)} disagrees with its plain version "
+                         f"(max |limb diff| {err})")
+    return {"max_abs_err": err, "ms": ms, "eager_ms": eager_ms, "wall_ms": wall_ms,
+            "plain_ms": plain_ms, "shape": list(out.shape),
+            **_bound(kname, bound_args, out, clock_hz)}
+
+
+def phase_field_kernels(pp, clock_hz: float, device=None) -> dict:
+    """K10-K12 against their plain versions on the card, bit for bit, on Fp
+    and Fq, at the main path's shapes from phase 12's params: K10 every op
+    on the cross term's (3, num_cons) operands (any 256-bit patterns, the
+    corners 0, 1, p - 1, p, 2^256 - 1 first), the fold a + r b with r one
+    element on W (num_aux) and on the stacked rest (4, num_cons); K11 on the
+    outer sumcheck's (4, 2^13) and the IPA's (2, 2^13) equal segments, the
+    gamma-matvec's entries by column into 2^14 columns, and two long
+    segments (2^16 copies of p - 1, of 2^256 - 1) with an empty one; K12 on
+    A, B and C of both sides and on rows of 2^15 entries (p - 1 times
+    p - 1; products p - 1) beside empty rows.  Each with its card ms, the
+    wrapper's host ms, the plain version's ms and its bound; the Fq (the
+    primary side's) cases make the kernels line."""
+    import torch
+
+    from vdf_tpu_torch.fields import FIELDS
+    from vdf_tpu_torch.fields import kernels as FK
+    from vdf_tpu_torch.nova.r1cs_device import DeviceMatrix
+
+    device = torch.device("cuda", 0) if device is None else torch.device(device)
+    stats: dict = {k: {} for k in FIELD_KERNELS}
+    for side in (pp.primary, pp.secondary):
+        name = side.field.params.name
+        p = FIELDS[name].modulus
+        n_cons, n_aux = side.shape.num_cons, side.shape.num_aux
+        a = _field_limbs(p, 3 * n_cons, 31, device).reshape(3, n_cons, 8)
+        b = _field_limbs(p, 3 * n_cons, 32, device).reshape(3, n_cons, 8)
+        r = _field_limbs(p, 1, 33, device, canonical=True)[0]
+        rest_a, rest_b = (_field_limbs(p, 4 * n_cons, seed, device, canonical=True)
+                          .reshape(4, n_cons, 8) for seed in (34, 35))
+        w_a, w_b = (_field_limbs(p, n_aux, seed, device, canonical=True) for seed in (36, 37))
+        ew = {}
+        for op, (_, arity) in FK.EW_OPS.items():
+            if op == "fold":
+                continue
+            x = (a, b)[:arity] if op in ("mul", "sqr") else (a[0], b[0])[:arity]
+            ew[op] = _field_case("field_ew", FK.field_ew, (name, op, *x), FK.field_ew_plain,
+                                 (name, op, *x), (name, op, *x), clock_hz)
+        for where, (x, y) in (("fold W", (w_a, w_b)), ("fold rest", (rest_a, rest_b))):
+            ew[where] = _field_case(
+                "field_ew", FK.field_ew, (name, "fold", x, r, y), FK.field_ew_plain,
+                (name, "fold", x, r.expand_as(y), y), (name, "fold", x, r, y), clock_hz)
+        seg = {}
+        for where, rows in (("outer sumcheck (4, 2^13)", 4), ("IPA (2, 2^13)", 2)):
+            x = _field_limbs(p, rows << 13, 38 + rows, device, canonical=True)
+            seg[where] = _field_case("field_segsum", FK.field_segsum, (name, x, None, rows),
+                                     FK.field_segsum_plain, (name, x, None, rows),
+                                     (name, x), clock_hz)
+        _, _, cols, _ = side.dev_shape.entries_by_column
+        n_cols = 1 << max(1, (side.shape.num_vars - 1).bit_length())
+        offsets = torch.searchsorted(cols, torch.arange(n_cols + 1, device=device))
+        prods = _field_limbs(p, cols.shape[0], 40, device, canonical=True)
+        seg[f"gamma-matvec ({cols.shape[0]} entries, {n_cols} columns)"] = _field_case(
+            "field_segsum", FK.field_segsum, (name, prods, offsets), FK.field_segsum_plain,
+            (name, prods, offsets), (name, prods, offsets), clock_hz)
+        longs = torch.cat([_field_fill(p - 1, SEGSUM_LONG, device),
+                           _field_fill((1 << 256) - 1, SEGSUM_LONG, device)])
+        off = torch.tensor([0, SEGSUM_LONG, SEGSUM_LONG, 2 * SEGSUM_LONG], device=device)
+        seg["long segments (2^16 of p - 1, none, 2^16 of 2^256 - 1)"] = _field_case(
+            "field_segsum", FK.field_segsum, (name, longs, off), FK.field_segsum_plain,
+            (name, longs, off), (name, longs, off), clock_hz, reps=1)
+        mv = {}
+        z = _field_limbs(p, side.shape.num_aux + 1 + side.shape.num_inputs, 41, device,
+                         canonical=True)
+        for mname in ("a", "b", "c"):
+            m = getattr(side.dev_shape, mname)
+            mv[mname.upper()] = _field_case(
+                "r1cs_matvec", FK.r1cs_matvec, (name, m.rows, m.offsets, m.cols, m.vals, z),
+                FK.r1cs_matvec_plain, (name, m.rows, m.cols, m.vals, z, m.num_rows),
+                (name, m.offsets, m.cols, m.vals, z), clock_hz)
+        big = 1 << 15  # MAX_ROW_NNZ
+        rows = torch.repeat_interleave(torch.tensor([1, 3], device=device), big)
+        cols_w = torch.repeat_interleave(torch.tensor([0, 1], device=device), big)
+        vals = _field_fill(p - 1, 2 * big, device)
+        zw = torch.cat([_field_fill(p - 1, 1, device),
+                        _field_fill((1 << 256) % p, 1, device)])  # (p - 1)(R mod p)/R = p - 1
+        worst = DeviceMatrix(rows, cols_w, vals, 5)
+        mv["rows of 2^15 entries"] = _field_case(
+            "r1cs_matvec", FK.r1cs_matvec, (name, rows, worst.offsets, cols_w, vals, zw),
+            FK.r1cs_matvec_plain, (name, rows, cols_w, vals, zw, 5),
+            (name, worst.offsets, cols_w, vals, zw), clock_hz, reps=1)
+        for kname, cases in (("field_ew", ew), ("field_segsum", seg), ("r1cs_matvec", mv)):
+            stats[kname][name] = cases
+        _log(f"field kernels: {name} ({side.curve_name} commitments, {n_cons} constraints): "
+             f"K10 every op, K11, K12 == plain, bit for bit")
+
+    out = {}
+    heads = {"field_ew": "mul", "field_segsum": "outer sumcheck (4, 2^13)", "r1cs_matvec": "A"}
+    for kname, by_field in stats.items():
+        head = by_field["Fq"][heads[kname]]
+        out[kname] = {**{k: head[k] for k in ("ms", "eager_ms", "wall_ms", "plain_ms",
+                                              "bound_ms", "bound_by", "library_ms", "shape")},
+                      "max_abs_err": max(c["max_abs_err"] for cases in by_field.values()
+                                         for c in cases.values()),
+                      "timed_at": f"Fq, {heads[kname]}", "cases": by_field}
+        _log(f"field kernels: {kname} " + json.dumps(by_field))
+    return out
+
+
+def _field_fill(v: int, n: int, device):
+    """(n, 8) int32 limbs, every row the integer v < 2^256."""
+    import torch
+
+    row = [((v >> (32 * j)) & 0xFFFFFFFF) - ((v >> (32 * j + 31)) & 1) * (1 << 32)
+           for j in range(8)]
+    return torch.tensor(row, dtype=torch.int32, device=device).expand(n, 8).contiguous()
 
 
 SAVE_AT = 3  # phase 14: the steps proven before the checkpoint is written
@@ -2281,7 +2514,7 @@ def phase_pipeline(ivc: dict, ivc_stats: dict, card: str) -> tuple[dict, dict, d
     return stats, launches, il_launches
 
 
-def phase_modes_mesh(device, ivc: dict, card: str) -> tuple[dict, dict]:
+def phase_modes_mesh(device, ivc: dict, card: str) -> tuple[dict, dict, dict]:
     """The four EvalMode schedules and the mesh.  forward_step in each mode
     and forward_step_unrolled on LANES lanes on the card, equal to each other
     and to K1 at t = 1; program_cost of each mode on each field.  Then an NCCL
@@ -2291,7 +2524,8 @@ def phase_modes_mesh(device, ivc: dict, card: str) -> tuple[dict, dict]:
     tampered; sharded_matvec on phase 12's primary A, B and C ==
     DeviceMatrix.matvec; sharded_msm at MSM_N == msm on phase 9's inputs ==
     the native Pippenger.  Returns stats and the launch counts of the
-    sharded calls (read before their comparisons)."""
+    sharded calls (read before their comparisons) and of the mode programs
+    (K10)."""
     import tempfile
 
     import torch
@@ -2318,6 +2552,7 @@ def phase_modes_mesh(device, ivc: dict, card: str) -> tuple[dict, dict]:
     zero = torch.zeros_like(x)
     want = minroot_eval("Fq", x, zero, zero.clone(), 1)[0]
     mode_ms, costs = {}, {}
+    _reset_counts()
     for mode in EvalMode.all():
         vdf = pallas_vdf(mode)
         for form, fn in (("forward_step", vdf.forward_step),
@@ -2328,8 +2563,13 @@ def phase_modes_mesh(device, ivc: dict, card: str) -> tuple[dict, dict]:
             mode_ms[f"{mode.value}/{form}"] = dt * 1e3
         costs[mode.value] = {name: program_cost(P.inv_alpha, mode.value)
                              for name, P in FIELDS.items()}
+    modes_launches = _counts()  # of the mode programs alone
     if f.decode(want[:2]) != [pow(v, f.params.inv_alpha, p) for v in xs[:2]]:
         raise SystemExit("modes: K1 at t=1 is not the fifth root")
+    for kname in FIELD_PATHS["modes"]:
+        if modes_launches[kname] <= 0:
+            raise SystemExit(f"evidence: kernel {kname} was not launched by the mode programs")
+    _log(f"modes: launches during the mode programs {modes_launches}")
     _log(f"modes: forward_step in each of the four modes and forward_step_unrolled on {LANES} "
          f"lanes == K1 at t=1; eager wall ms " + json.dumps(mode_ms))
     _log("modes: program_cost (squarings, products) by mode and field " + json.dumps(costs))
@@ -2403,10 +2643,10 @@ def phase_modes_mesh(device, ivc: dict, card: str) -> tuple[dict, dict]:
     _log("mesh: " + json.dumps(stats))
     _log(f"mesh: launches during the sharded calls {launches}")
     for kname in ("minroot_eval", "minroot_inverse", "canon_digits", "scan", "colscan", "bucket",
-                  "horner"):
+                  "horner", "r1cs_matvec"):
         if launches[kname] <= 0:
             raise SystemExit(f"evidence: kernel {kname} was not launched by the mesh path")
-    return stats, launches
+    return stats, launches, modes_launches
 
 
 def phase_dryrun(card: str) -> tuple[dict, dict]:
@@ -2545,7 +2785,8 @@ def phase_bench(card: str) -> tuple[dict, dict]:
         stats[name] = {"wall_s": wall, "last_line": last, "sections": d["section_wall_seconds"],
                        "build_s": d["build_seconds"]}
         _log(f"bench: {name} full line " + json.dumps(full))
-    for kname in ("minroot_eval", "minroot_inverse", *COMMIT_KERNELS, "horner"):
+    for kname in ("minroot_eval", "minroot_inverse", *COMMIT_KERNELS, "horner",
+                  *FIELD_PATHS["bench"]):
         if launches[kname] <= 0:
             raise SystemExit(f"evidence: kernel {kname} was not launched by the bench runs")
     _log(f"bench: launches summed over the runs' sections {launches}")
@@ -2613,16 +2854,17 @@ def main() -> None:
     _, msm_launches = phase_msm(device, MSM_N, MSM_CHECK_N)
     _, engine_launches = phase_engine(ENGINE_T, ENGINE_STEPS)
     ivc_stats, ivc_launches, ivc_proofs = phase_ivc(IVC_T, IVC_STEPS, IVC_CHECK_STEPS, card)
+    field_stats = phase_field_kernels(ivc_proofs["pp"], clock_hz)
     _, compress_launches, compress_err = phase_compress(ivc_proofs, card)
     _, service_launches = phase_service(ivc_proofs, main_stats.pop("result"), T, card)
     _, pipeline_launches, interleaved_launches = phase_pipeline(ivc_proofs, ivc_stats, card)
-    _, mesh_launches = phase_modes_mesh(device, ivc_proofs, card)
+    _, mesh_launches, modes_launches = phase_modes_mesh(device, ivc_proofs, card)
     del ivc_proofs
     _, dryrun_launches = phase_dryrun(card)
     _, bench_launches = phase_bench(card)
     slice_paths = {"service": service_launches, "pipeline": pipeline_launches,
                    "interleaved": interleaved_launches, "mesh": mesh_launches,
-                   "dryrun": dryrun_launches, "bench": bench_launches}
+                   "modes": modes_launches, "dryrun": dryrun_launches, "bench": bench_launches}
 
     # Evidence: K1, K3-K7 and K9 were launched by the MSM and engine paths.
     moved = {k: msm_launches.get(k, 0) + engine_launches.get(k, 0) for k in engine_launches}
@@ -2692,6 +2934,18 @@ def main() -> None:
                **{path: n["horner"] for path, n in slice_paths.items()}},
               msm_kernel_stats["horner"], {"batch": 1, "curve": "pallas"}),
     ]
+    # K10-K12: the device plane's field arithmetic, counterparts of the
+    # reference's XLA code; timed at the primary side's (Fq) main shapes.
+    field_paths = {"ivc": ivc_launches, "compress": compress_launches,
+                   "minroot": main_stats["launches"], "engine": engine_launches, **slice_paths}
+    for kname, st in field_stats.items():
+        e = entry(kname, FIELD_SRC, FIELD_KERNELS[kname][1],
+                  {path: n.get(kname, 0) for path, n in field_paths.items()}, st, st["timed_at"])
+        e["counterpart_of"] = "XLA code under jax.jit in the reference, not a Pallas kernel"
+        e["eager_ms"], e["wall_ms"] = st["eager_ms"], st["wall_ms"]
+        if kname == "field_ew":
+            e["ops_ms"] = {op: c["ms"] for op, c in st["cases"]["Fq"].items()}
+        kernels.append(e)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

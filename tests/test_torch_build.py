@@ -94,6 +94,11 @@ def test_constants_header_matches_params():
     # K5: sums, flags, three scratch buffers, carries, cols, batch, columns a thread;
     # K6: tails, tail_col, carries, scratch, out, cols, batch, chunk bits, threads.
     assert len(_build.LAUNCHERS["vdf_colscan"]) == 11 and len(_build.LAUNCHERS["vdf_bucket"]) == 11
+    # K10: field, op, a, b, c, out, n, broadcast bits; K11: field, x, offsets, out,
+    # segments, segment length; K12: field, offsets, cols, vals, z, out, rows; each + stream
+    assert len(_build.LAUNCHERS["vdf_field_ew"]) == 9
+    assert len(_build.LAUNCHERS["vdf_field_segsum"]) == 7
+    assert len(_build.LAUNCHERS["vdf_r1cs_matvec"]) == 8
 
 
 @pytest.mark.parametrize("modulus", [
@@ -123,7 +128,7 @@ def test_cpu_tensor_takes_plain_version_and_counts_nothing(name):
     back = minroot_inverse(name, *fwd, 2)
     assert all(torch.equal(a, b) for a, b in zip(back, minroot_inverse_plain(name, *fwd, 2)))
     assert all(torch.equal(a, b) for a, b in zip(back, s))
-    assert LAUNCHES == {"minroot_eval": 0, "minroot_inverse": 0}
+    assert LAUNCHES == dict.fromkeys(LAUNCHES, 0)
 
 
 def _bad_inputs():
@@ -172,7 +177,7 @@ def test_kernels_match_plain_on_card(cuda, name):
     s = state(name, 300, seed=4, device=cuda)
     fwd = minroot_eval(name, *s, 3)
     back = minroot_inverse(name, *fwd, 3)
-    assert LAUNCHES == {"minroot_eval": 1, "minroot_inverse": 1}
+    assert LAUNCHES == {**dict.fromkeys(LAUNCHES, 0), "minroot_eval": 1, "minroot_inverse": 1}
     want_fwd = minroot_eval_plain(name, *s, 3)
     assert all(torch.equal(a, b) for a, b in zip(fwd, want_fwd))
     assert all(torch.equal(a, b) for a, b in zip(back, minroot_inverse_plain(name, *fwd, 3)))
@@ -471,3 +476,110 @@ def test_shift_gens_canon_digits_and_scan_launchers_refuse_bad_arguments(cuda):
         torch.cuda.synchronize()
         want = CK.canon_digits_plain("Fq", s, CK.WINDOWS * 6 + 3, key_bits=key_bits)
         assert err == 0 and torch.equal(out, want), key_bits
+
+
+@pytest.mark.gpu
+def test_field_launchers_refuse_bad_arguments(cuda):
+    """vdf_field_ew takes field 0 or 1, an op code below 7, broadcast bits
+    below 8 and every operand its op reads; vdf_field_segsum and
+    vdf_r1cs_matvec a field 0 or 1 and no negative count: anything else is
+    refused with cudaErrorInvalidValue before a launch, and every good call
+    launches and equals the plain version."""
+    from vdf_tpu_torch.fields import kernels as FK
+
+    invalid_value = 1  # cudaErrorInvalidValue
+    lib = _build.load_kernels().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    a, b, _ = state("Fq", 40, seed=7, device=cuda)
+    out = torch.empty_like(a)
+
+    def ew(field=1, op=2, bcast=0, b_ptr=b.data_ptr(), n=40):
+        return lib.vdf_field_ew(field, op, a.data_ptr(), b_ptr, None, out.data_ptr(), n, bcast,
+                                stream)
+
+    for bad in ({"field": 2}, {"field": -1}, {"op": 7}, {"op": -1}, {"bcast": 8},
+                {"bcast": -1}, {"b_ptr": None}, {"op": 6}, {"n": -1}):
+        assert ew(**bad) == invalid_value, bad
+    assert ew() == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, FK.field_ew_plain("Fq", "mul", a, b))
+    offsets = torch.tensor([0, 10, 10, 40], dtype=torch.int64, device=cuda)
+    sums = torch.empty((3, 8), dtype=torch.int32, device=cuda)
+    for field, segs in ((2, 3), (0, -1)):
+        assert lib.vdf_field_segsum(field, a.data_ptr(), offsets.data_ptr(), sums.data_ptr(),
+                                    segs, 0, stream) == invalid_value
+    assert lib.vdf_field_segsum(1, a.data_ptr(), offsets.data_ptr(), sums.data_ptr(), 3, 0,
+                                stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(sums, FK.field_segsum_plain("Fq", a, offsets))
+    cols = torch.arange(40, dtype=torch.int64, device=cuda) % 7
+    rows = torch.repeat_interleave(torch.arange(3, device=cuda), offsets.diff())
+    prod = torch.empty((3, 8), dtype=torch.int32, device=cuda)
+    for field, n_rows, off in ((2, 3, offsets.data_ptr()), (1, -1, offsets.data_ptr()),
+                               (1, 3, None)):
+        assert lib.vdf_r1cs_matvec(field, off, cols.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                   prod.data_ptr(), n_rows, stream) == invalid_value
+    assert lib.vdf_r1cs_matvec(1, offsets.data_ptr(), cols.data_ptr(), a.data_ptr(),
+                               b.data_ptr(), prod.data_ptr(), 3, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(prod, FK.r1cs_matvec_plain("Fq", rows, cols, a, b, 3))
+
+
+def _limbs(vals) -> torch.Tensor:
+    """Integers below 2^256 as (n, 8) int32 limb bit patterns."""
+    raw = b"".join(int(v).to_bytes(32, "little") for v in vals)
+    return torch.from_numpy(np.frombuffer(raw, dtype="<u4").reshape(-1, 8).view(np.int32).copy())
+
+
+def _seeded(p: int, n: int, seed: int, canonical: bool = True) -> list[int]:
+    nrng = np.random.default_rng(seed)
+    vals = [int.from_bytes(nrng.bytes(32), "little") for _ in range(n)]
+    return [v % p for v in vals] if canonical else vals
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["Fp", "Fq"])
+def test_field_kernels_match_plain_on_card(cuda, name):
+    """K10 (every op, a broadcast operand, a non-contiguous one), K11 (by
+    offsets and as equal segments) and K12 (the augmented primary's A) once
+    each on the card against their plain versions on the same CUDA
+    tensors, bit for bit, each launch counted; no digit-level call but the
+    plain versions'."""
+    from vdf_tpu_torch.fields import kernels as FK
+    from vdf_tpu_torch.fields import ops as field_ops
+    from vdf_tpu_torch.nova import augmented
+    from vdf_tpu_torch.nova.r1cs_device import DeviceShape
+
+    ops = ["add", "sub", "mul", "sqr", "neg", "canon"]
+    p = FIELDS[name].modulus
+    f = get_field(name)
+    a = _limbs([0, 1, p - 1, p, 2 * p - 1, 1 << 255, (1 << 256) % p, (1 << 256) - 1] * 40
+               + _seeded(p, 200, 123, canonical=False)).to(cuda)
+    b = _limbs(_seeded(p, a.shape[0], 124, canonical=False)).to(cuda)
+    r = f.encode(_seeded(p, 1, 125)[0], cuda)
+    FK.reset_launches()
+    field_ops.reset_digit_calls()
+    outs = {op: FK.field_ew(name, op, *((a, b) if FK.EW_OPS[op][1] == 2 else (a,)))
+            for op in ops}
+    outs["fold"] = FK.field_ew(name, "fold", a, r, b)
+    outs["strided"] = f.sub(a[::2], b[1::2])
+    offsets = torch.tensor([0, 100, 100, a.shape[0]], dtype=torch.int64, device=cuda)
+    sums = FK.field_segsum(name, a, offsets), FK.field_segsum(name, a[:320], segments=4)
+    assert FK.LAUNCHES["field_ew"] == len(ops) + 2 and FK.LAUNCHES["field_segsum"] == 2
+    assert field_ops.digit_calls() == 0
+    for op in ops:
+        args = (a, b) if FK.EW_OPS[op][1] == 2 else (a,)
+        assert torch.equal(outs[op], FK.field_ew_plain(name, op, *args)), op
+    assert torch.equal(outs["fold"], FK.field_ew_plain(name, "fold", a, r.expand_as(b), b))
+    assert torch.equal(outs["strided"], FK.field_ew_plain(name, "sub", a[::2], b[1::2]))
+    assert torch.equal(sums[0], FK.field_segsum_plain(name, a, offsets))
+    assert torch.equal(sums[1], FK.field_segsum_plain(name, a[:320], segments=4))
+    if name == "Fq":
+        shape = augmented.make_circuits(1)[0].shape()
+        m = DeviceShape.build(f, shape, device=cuda).a
+        z = f.encode(_seeded(p, shape.num_aux + 1 + shape.num_inputs, 126), cuda)
+        FK.reset_launches()
+        got = m.matvec(f, z)
+        assert FK.LAUNCHES["r1cs_matvec"] == 1
+        assert torch.equal(got, FK.r1cs_matvec_plain(name, m.rows, m.cols, m.vals, z,
+                                                     m.num_rows))

@@ -88,7 +88,7 @@ def test_plain_kernels_match_jax_eval(vdfs):
     jback = jvdf.inverse_eval(jr, t)
     assert [vdf.field.decode(a) for a in back] == [jvdf.field.decode(a) for a in jback]
     assert all(torch.equal(a, b) for a, b in zip(back, s))
-    assert LAUNCHES == {"minroot_eval": 0, "minroot_inverse": 0}
+    assert LAUNCHES == dict.fromkeys(LAUNCHES, 0)
 
 
 def test_round_and_inverse_round_match_plain_kernels(vdfs):

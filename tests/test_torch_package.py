@@ -34,6 +34,7 @@ import vdf_tpu_torch
 from vdf_tpu_torch import _build, curves, device, interop, native, nova, poseidon, r1cs
 from vdf_tpu_torch import bench, checkpoint, config, entry, parallel, serialize, spartan
 from vdf_tpu_torch.fields import chains
+from vdf_tpu_torch.fields import kernels as field_kernels, ops as field_ops
 from vdf_tpu_torch.nova import pipeline
 from vdf_tpu_torch.parallel import distributed, mesh
 from vdf_tpu_torch.curves import bucket_msm, kernels
@@ -60,6 +61,8 @@ assert parallel.sharded_msm is mesh.sharded_msm and distributed.make_mesh is mes
 assert checkpoint.save_ivc and chains.get_program(5, "rtl_add_chain")
 assert entry.dryrun_multichip and entry.entry
 assert bench.main and bench.msm_inputs
+assert field_kernels.field_ew and field_kernels.field_segsum and field_kernels.r1cs_matvec
+assert field_ops.digit_calls() == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("ok")

@@ -128,6 +128,11 @@ LAUNCHERS = {
     "vdf_colscan": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P],
     "vdf_bucket": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P],
     "vdf_horner": [_I, _P, _P, _L, _P],
+    # K10: field, op, a, b, c, out, n, broadcast bits; K11: field, x, offsets,
+    # out, segments, segment length; K12: field, offsets, cols, vals, z, out, rows
+    "vdf_field_ew": [_I, _I, _P, _P, _P, _P, _L, _I, _P],
+    "vdf_field_segsum": [_I, _P, _P, _P, _L, _L, _P],
+    "vdf_r1cs_matvec": [_I, _P, _P, _P, _P, _P, _L, _P],
 }
 
 

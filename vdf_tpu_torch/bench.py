@@ -104,7 +104,8 @@ LATENCY_LANES = 1024
 SWEEP = ((10, 200, 12, 90), (100, 20, 12, 90), (1000, 2, 4, 180))
 SMOKE_SWEEP_CAP = 6
 LAST_LINE_MAX = 1500
-FOLD_KERNELS = ("canon_digits", "canon_mont", "scan", "colscan", "bucket")
+FOLD_KERNELS = ("canon_digits", "canon_mont", "scan", "colscan", "bucket", "field_ew",
+                "r1cs_matvec")
 MSM_KERNELS = ("canon_digits", "scan", "colscan", "bucket", "horner")
 
 
@@ -759,14 +760,14 @@ def run(args, asm: Assembler) -> None:
                               min_remaining=gate, kernels=MSM_KERNELS)
         asm.emit()
     if everything or args.minroot:
-        kernels = () if args.xla_path else ("minroot_eval", "minroot_inverse")
+        kernels = ("field_ew",) if args.xla_path else ("minroot_eval", "minroot_inverse")
         asm.minroot = asm.section("minroot", lambda: minroot_result(
             args, dev, asm.card, asm.remaining, asm.skipped, with_modes=not everything),
             min_remaining=gate, kernels=kernels)
         asm.emit()
         if everything and asm.minroot is not None and not smoke:
             modes = asm.section("per_mode", lambda: permode_result(
-                dev, asm.remaining, asm.skipped), min_remaining=gate)
+                dev, asm.remaining, asm.skipped), min_remaining=gate, kernels=("field_ew",))
             if modes is not None:
                 asm.minroot["detail"]["per_mode_eval"] = modes
             asm.emit()

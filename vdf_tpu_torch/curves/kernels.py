@@ -59,6 +59,7 @@ import torch
 
 from ..errors import KernelError
 from ..fields import FIELDS, NLIMBS, get_field
+from ..fields.ops import from_digits, to_digits
 from .point import (
     add16,
     double16,
@@ -278,7 +279,8 @@ def canon_digits_plain(field_name: str, scalars: torch.Tensor, m_pad: int,
     k, n = scalars.shape[:2]
     span = n if window_rows else WINDOWS * n  # items a key row
     bits = key_width(span, key_bits)
-    limbs = get_field(field_name).from_mont(scalars.reshape(-1, NLIMBS))
+    f = get_field(field_name)
+    limbs = from_digits(f.from_mont16(to_digits(scalars.reshape(-1, NLIMBS))))
     words = limbs.to(torch.int64) & 0xFFFFFFFF  # (k n, 8)
     digits = []
     for w in range(WINDOWS):
@@ -310,7 +312,7 @@ def canon_mont(field_name: str, values: torch.Tensor) -> torch.Tensor:
 
 
 def canon_mont_plain(field_name: str, values: torch.Tensor) -> torch.Tensor:
-    return get_field(field_name).to_mont(values)
+    return from_digits(get_field(field_name).to_mont16(to_digits(values)))
 
 
 # ---------------------------------------------------------------------

@@ -349,10 +349,13 @@ def _expected_kernels(name: str, result) -> tuple:
     if name == "dp":
         return ("minroot_eval", "minroot_inverse")
     if name == "tp_fold":
-        return ("canon_mont", *_COMMIT, "horner" if result["path"] == TP_PATH else "shift_gens")
+        return ("canon_mont", *_COMMIT, "horner" if result["path"] == TP_PATH else "shift_gens",
+                "field_ew", "r1cs_matvec")
     if name == "sweep" and result:  # a rank in no sub-mesh runs no msm
         return (*_COMMIT, "horner")
-    return ()  # the matvec is tensor code
+    if name == "matvec":
+        return ("r1cs_matvec",)
+    return ()
 
 
 # ---------------------------------------------------------------------

@@ -21,8 +21,9 @@ generator bug cannot silently produce a wrong chain.  The programs are the
 JAX package's, op for op.
 
 Two executors run on ``(..., 8)`` Montgomery tensors with the port's
-field arithmetic (fields/ops.py), converting to its digit form once per
-call: ``pow_fixed`` runs a program register by register, and
+field arithmetic (fields/ops.py): on a CPU tensor on its digit form,
+converting once a call; on the card through ``Field.sqr``/``Field.mul``,
+one K10 launch a step.  ``pow_fixed`` runs a program register by register, and
 ``pow_window`` / ``pow_rtl`` run the uniform schedules that
 ``MinRootVDF.forward_step`` selects by mode (an LTR window scan, or RTL
 binary).  The JAX package's ``pow_fixed_scan*`` forms exist to shrink an
@@ -238,8 +239,21 @@ def program_cost(e: int, mode: str) -> tuple[int, int]:
 # ---------------------------------------------------------------------
 
 
+class _Steps:
+    """How an executor runs a program's steps on x's device: on a CPU tensor
+    through the digit methods (one conversion in and one out), on any other
+    through ``Field.sqr``/``Field.mul`` (K10 on the card, a launch a step)."""
+
+    def __init__(self, field: Field, x: torch.Tensor):
+        digits = x.device.type == "cpu"
+        self.enter = to_digits if digits else (lambda a: a)
+        self.leave = from_digits if digits else (lambda a: a)
+        self.sqr = field.sqr16 if digits else field.sqr
+        self.mul = field.mul16 if digits else field.mul
+
+
 def _one(field: Field, x: torch.Tensor) -> torch.Tensor:
-    return from_digits(field.one16(to_digits(x)))
+    return field.const_like(x, 1).contiguous()
 
 
 def pow_fixed(field: Field, x: torch.Tensor, e: int, mode: str = "ltr_add_chain") -> torch.Tensor:
@@ -252,37 +266,41 @@ def pow_fixed(field: Field, x: torch.Tensor, e: int, mode: str = "ltr_add_chain"
     for k, op in enumerate(ops):
         for reg in op[2:]:
             last_read[reg] = k
-    regs = {0: to_digits(x)}
+    run = _Steps(field, x)
+    regs = {0: run.enter(x)}
     for k, op in enumerate(ops):
         if op[0] == "sqr":
-            regs[op[1]] = field.sqr16(regs[op[2]])
+            regs[op[1]] = run.sqr(regs[op[2]])
         else:
-            regs[op[1]] = field.mul16(regs[op[2]], regs[op[3]])
+            regs[op[1]] = run.mul(regs[op[2]], regs[op[3]])
         for reg in op[2:]:
             if last_read[reg] == k and reg != out:
                 regs.pop(reg, None)
-    return from_digits(regs[out])
+    return run.leave(regs[out])
 
 
 def pow_window(field: Field, x: torch.Tensor, e: int, window: int) -> torch.Tensor:
     """x^e by a uniform LTR scan of ``window``-bit digits (the JAX package's
-    ``pow_fixed_scan`` schedule; ``Field.pow16``, whose w=4 form K1 runs)."""
+    ``pow_fixed_scan`` schedule; ``Field.pow16``, whose w=4 form K1 runs;
+    off the CPU ``Field.pow``, the same schedule an op a step)."""
     if e == 0:
         return _one(field, x)
-    return from_digits(field.pow16(to_digits(x), e, window))
+    if x.device.type == "cpu":
+        return from_digits(field.pow16(to_digits(x), e, window))
+    return field.pow(x, e, window)
 
 
 def pow_rtl(field: Field, x: torch.Tensor, e: int) -> torch.Tensor:
     """x^e by RTL binary (the JAX package's ``pow_fixed_scan_rtl``
     schedule): a running square, multiplied into the accumulator at each
     set bit."""
-    xd = to_digits(x)
-    acc = field.one16(xd)
-    s = xd
+    run = _Steps(field, x)
+    s = run.enter(x)
+    acc = run.enter(_one(field, x))
     nbits = e.bit_length()
     for k in range(nbits):
         if (e >> k) & 1:
-            acc = field.mul16(acc, s)
+            acc = run.mul(acc, s)
         if k + 1 < nbits:
-            s = field.sqr16(s)
-    return from_digits(acc)
+            s = run.sqr(s)
+    return run.leave(acc)

@@ -20,11 +20,21 @@ conditional subtraction makes it canonical, as the kernel's
 ``mont_mul`` does (csrc/field.cuh).  ``4p > R = 2^256``, so lazy sums
 stay below ``3p``; ``canon16`` takes any 256-bit value (``< 4p``) to
 ``< p``.
+
+The public methods (``add``, ``sub``, ``mul``, ``sqr``, ``neg``, ``canon``,
+``fold`` and what is built on them) go through fields/kernels.py's
+``field_ew`` (K10): on a CUDA tensor a hand-written kernel, on a CPU tensor
+this digit code, bit for bit the same.  The digit-level ``*16`` methods
+stay plain on every device: the plain versions of the kernels are built
+from them.  ``digit_calls()`` counts their calls on tensors off the CPU,
+so a run on the card can show that no caller of the main path was left
+on the digit code.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -34,6 +44,33 @@ from .params import FIELDS, NLIMBS, WINDOW, FieldParams, int_to_limbs, window_di
 
 ND = 2 * NLIMBS  # 16-bit digits per element
 _DMASK = 0xFFFF
+
+_DIGIT_CALLS = [0]  # calls of the *16 methods on a tensor that is not on the CPU
+_DIGIT_LOCK = threading.Lock()
+
+
+def digit_calls() -> int:
+    """Calls of ``Field``'s digit-level methods on tensors off the CPU
+    since the last ``reset_digit_calls()``."""
+    return _DIGIT_CALLS[0]
+
+
+def reset_digit_calls() -> None:
+    with _DIGIT_LOCK:
+        _DIGIT_CALLS[0] = 0
+
+
+def _digit_level(fn):
+    """Count a digit-level method's calls on tensors off the CPU."""
+
+    @functools.wraps(fn)
+    def counted(self, v, *args, **kwargs):
+        if v.device.type != "cpu":
+            with _DIGIT_LOCK:
+                _DIGIT_CALLS[0] += 1
+        return fn(self, v, *args, **kwargs)
+
+    return counted
 
 
 def to_digits(a: torch.Tensor) -> torch.Tensor:
@@ -82,6 +119,24 @@ def resolve(v: torch.Tensor, folds: int = 3) -> torch.Tensor:
     prop = ((v == _DMASK).to(torch.int64) * weight).sum(-1, keepdim=True)
     carry_in = ((((gen | prop) + gen) ^ prop) >> pos) & 1
     return (v + carry_in) & _DMASK
+
+
+def _window_pow(mul, sqr, one, base, e: int, window: int):
+    """base^e by a fixed window over the ops ``mul`` and ``sqr``: a table of
+    the 2^window powers (``one`` is the 0th), the first digit seeds the
+    accumulator, then per digit ``window`` squarings and one multiply (none
+    for a zero digit)."""
+    table = [one, base]
+    for _ in range(2, 1 << window):
+        table.append(mul(table[-1], base))
+    digits = window_digits(e, window)
+    acc = table[digits[0]]
+    for d in digits[1:]:
+        for _ in range(window):
+            acc = sqr(acc)
+        if d:
+            acc = mul(acc, table[d])
+    return acc
 
 
 class _DeviceConsts:
@@ -142,6 +197,7 @@ class Field:
         out = torch.zeros(shape, dtype=torch.int64, device=outer.device)
         return out.index_add_(-1, c.conv_idx, outer)
 
+    @_digit_level
     def mul16(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Montgomery product a*b/R mod p: inputs < p, output < p."""
         c = self.consts(a.device)
@@ -152,9 +208,11 @@ class Field:
         total = resolve(t + self._conv(m, c.p, c))  # < 2p * R < 2^512
         return self.cond_sub_p16(total[..., ND:])  # exact division by R
 
+    @_digit_level
     def sqr16(self, a: torch.Tensor) -> torch.Tensor:
         return self.mul16(a, a)
 
+    @_digit_level
     def add16(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Raw sum (caller keeps it < 2^256)."""
         return resolve(a + b)
@@ -165,41 +223,35 @@ class Field:
         w = resolve(torch.nn.functional.pad(v + comp, (0, 1)))
         return torch.where(w[..., ND:] > 0, w[..., :ND], v)
 
+    @_digit_level
     def cond_sub_p16(self, v: torch.Tensor) -> torch.Tensor:
         """< 2p -> < p."""
         return self._cond_sub(v, 1)
 
+    @_digit_level
     def canon16(self, v: torch.Tensor) -> torch.Tensor:
         """Any value < 2^256 (< 4p) -> canonical < p."""
         return self._cond_sub(self._cond_sub(v, 2), 1)
 
+    @_digit_level
     def sub16(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """a - b mod p for canonical a, b < p; output < p."""
         d2p = self.consts(a.device).d2p
         return self.canon16(resolve(a + (d2p - b)))  # a + 2p - b < 3p
 
+    @_digit_level
     def pow16(self, base: torch.Tensor, e: int, window: int = WINDOW) -> torch.Tensor:
-        """base^e (Montgomery), base < p, e > 0, by a fixed window, by
-        default the w=4 one the kernel runs (fields/kernels.py): a table of
-        the 2^window powers, the first digit seeds the accumulator, then per
-        digit ``window`` squarings and one multiply (none for a zero digit).
+        """base^e (Montgomery), base < p, e > 0, by ``_window_pow``'s fixed
+        window, by default the w=4 one the kernel runs (fields/kernels.py).
         Output < p."""
         one = self.consts(base.device).one.expand_as(base)
-        table = [one, base]
-        for _ in range(2, 1 << window):
-            table.append(self.mul16(table[-1], base))
-        digits = window_digits(e, window)
-        acc = table[digits[0]]
-        for d in digits[1:]:
-            for _ in range(window):
-                acc = self.sqr16(acc)
-            if d:
-                acc = self.mul16(acc, table[d])
-        return acc
+        return _window_pow(self.mul16, self.sqr16, one, base, e, window)
 
+    @_digit_level
     def one16(self, like: torch.Tensor) -> torch.Tensor:
         return self.consts(like.device).one.expand_as(like)
 
+    @_digit_level
     def dot16(self, a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
         """sum over batch axis ``dim`` of the Montgomery products a*b/R, for
         at most 8 terms: the raw products are summed before one reduction.
@@ -214,6 +266,7 @@ class Field:
         total = resolve(t + self._conv(m, c.p, c))  # digits < 2^40; value < 2^512
         return self.canon16(total[..., ND:])
 
+    @_digit_level
     def reduce_wide16(self, v: torch.Tensor) -> torch.Tensor:
         """Nonnegative digit sums (..., 16), each below 2^46 (up to 2^30
         canonical values added digit by digit), -> their value mod p,
@@ -225,28 +278,54 @@ class Field:
         hi_r = self.mul16(hi, c.r2.expand_as(hi))
         return self.cond_sub_p16(self.add16(self.canon16(wide[..., :ND]), hi_r))
 
+    @_digit_level
+    def from_mont16(self, d: torch.Tensor) -> torch.Tensor:
+        """Montgomery digits (any 256-bit value) -> canonical integer digits
+        of the value they hold (a / R mod p)."""
+        d = self.canon16(d)
+        return self.mul16(d, self.consts(d.device).int_one.expand_as(d))
+
+    @_digit_level
+    def to_mont16(self, d: torch.Tensor) -> torch.Tensor:
+        """Integer digits (any 256-bit value) -> canonical Montgomery digits
+        of that integer mod p (a R mod p)."""
+        d = self.canon16(d)
+        return self.mul16(d, self.consts(d.device).r2.expand_as(d))
+
     # ------------------------------------------------------------------
-    # public ops on (..., 8) int32 canonical Montgomery elements
+    # public ops on (..., 8) int32 canonical Montgomery elements: K10 on a
+    # CUDA tensor, the digit code above on a CPU one (fields/kernels.py)
     # ------------------------------------------------------------------
+
+    def _ew(self, op: str, *operands: torch.Tensor) -> torch.Tensor:
+        return _kernels.field_ew(self.params.name, op, *operands)
 
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return from_digits(self.cond_sub_p16(self.add16(to_digits(a), to_digits(b))))
+        return self._ew("add", a, b)
 
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return from_digits(self.sub16(to_digits(a), to_digits(b)))
+        return self._ew("sub", a, b)
 
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return from_digits(self.mul16(to_digits(a), to_digits(b)))
+        return self._ew("mul", a, b)
 
     def sqr(self, a: torch.Tensor) -> torch.Tensor:
-        return self.mul(a, a)
+        return self._ew("sqr", a)
 
-    def pow(self, a: torch.Tensor, e: int) -> torch.Tensor:
-        return from_digits(self.pow16(to_digits(a), e))
+    def fold(self, a: torch.Tensor, r: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The linear fold a + r b (one launch on the card)."""
+        return self._ew("fold", a, r, b)
+
+    def pow(self, a: torch.Tensor, e: int, window: int = WINDOW) -> torch.Tensor:
+        """a^e for e > 0 by ``pow16``'s schedule, each step one op: on the
+        card a chain of K10 launches."""
+        acc = _window_pow(self.mul, self.sqr, self.const_like(a, 1), a, e, window)
+        # One digit: acc is a table entry (``a`` itself, or the constant one).
+        return acc.clone() if len(window_digits(e, window)) == 1 else acc
 
     def canon(self, a: torch.Tensor) -> torch.Tensor:
         """Reduce any 256-bit limb vector to its canonical value < p."""
-        return from_digits(self.canon16(to_digits(a)))
+        return self._ew("canon", a)
 
     def inv(self, a: torch.Tensor) -> torch.Tensor:
         """a^(p-2): the inverse, and 0 for 0."""
@@ -266,7 +345,7 @@ class Field:
         return torch.zeros_like(ref)
 
     def neg(self, a: torch.Tensor) -> torch.Tensor:
-        return from_digits(self.sub16(torch.zeros_like(to_digits(a)), self.canon16(to_digits(a))))
+        return self._ew("neg", a)
 
     def eq(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Lane-wise equality of the field values (bool over ``...``)."""
@@ -277,15 +356,15 @@ class Field:
 
     def from_mont(self, a: torch.Tensor) -> torch.Tensor:
         """Montgomery limbs (any 256-bit pattern) -> canonical integer limbs
-        (< p) of the value they hold: a / R mod p."""
-        d = self.canon16(to_digits(a))
-        return from_digits(self.mul16(d, self.consts(a.device).int_one.expand_as(d)))
+        (< p) of the value they hold: a / R mod p, the product of canon(a)
+        and the integer 1 (R^-1 in Montgomery form)."""
+        return self.mul(self.canon(a), self.const_like(a, self.params.r_inv))
 
     def to_mont(self, a: torch.Tensor) -> torch.Tensor:
         """Integer limbs (any 256-bit pattern) -> canonical Montgomery limbs
-        of that integer mod p: a * R mod p."""
-        d = self.canon16(to_digits(a))
-        return from_digits(self.mul16(d, self.consts(a.device).r2.expand_as(d)))
+        of that integer mod p: a R mod p, the product of canon(a) and R^2 mod
+        p (R in Montgomery form)."""
+        return self.mul(self.canon(a), self.const_like(a, self.params.r))
 
     # ------------------------------------------------------------------
     # host-side conversions (exact Python ints)
@@ -331,3 +410,6 @@ class Field:
 @functools.cache
 def get_field(name: str) -> Field:
     return Field(FIELDS[name])
+
+
+from . import kernels as _kernels  # noqa: E402  (fields/kernels.py imports this module)

@@ -76,7 +76,7 @@ class MinRootVDF:
         self.field = field
         self.mode = EvalMode(mode)
 
-    # -- steps and single rounds (plain tensor code, any device) --------
+    # -- steps and single rounds (Field ops: K10 on the card, any device) --
 
     def forward_step(self, x: torch.Tensor) -> torch.Tensor:
         """x^invalpha — the slow 5th-root direction, by the mode's schedule."""

@@ -13,8 +13,9 @@ PublicParams / RecursiveSNARK, src/nova/proof.rs:232-237, 301-358,
   * **Data plane**, one of two engines, named by the caller:
       - ``"device"`` (the default): the witness handles are ``(n, 8)``
         Montgomery tensors on the card; every commit is the fixed-base
-        Pedersen commit (kernels K3-K7 against the key's pre-shifted table)
-        and the cross term's matvecs are tensor code.  A fold of a fresh
+        Pedersen commit (kernels K3-K7 against the key's pre-shifted table),
+        the matvecs are K12 and the cross term and the folds a + r b are K10
+        (fields/kernels.py).  A fold of a fresh
         strict instance is one fused pass (``Side._fold_strict``): K3's
         domain mode lifts the canonical witness, three matvecs, the cross
         term, one K = 2 commit of [w, T], one read of both points.
@@ -419,11 +420,11 @@ class Side:
         return w2, t, zp2, comm_w, comm_t
 
     def _wfoldp(self, W1, E1, zp1, w2, t, zp2, r):
-        """The six linear folds a + r b: W, E and the cached products."""
+        """The six linear folds a + r b: W, E and the cached products, two
+        fused folds (K10 on the card: one for W, one for the stacked rest)."""
         f = self.field
-        W = f.add(W1, f.mul(r.expand_as(w2), w2))
-        rest = f.add(torch.stack([E1, *zp1]),
-                     f.mul(r.expand(4, *t.shape), torch.stack([t, *zp2])))
+        W = f.fold(W1, r, w2)
+        rest = f.fold(torch.stack([E1, *zp1]), r, torch.stack([t, *zp2]))
         return W, rest[0], tuple(rest[1:])
 
     def _sat(self, W, E, x, u, comm_w, comm_e) -> bool:

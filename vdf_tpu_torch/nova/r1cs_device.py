@@ -1,45 +1,57 @@
 """Device-side R1CS: sparse matrices as tensors + batched matvec (port of
 ``vdf_tpu.nova.r1cs_device``).
 
-The prover's linear algebra: Az, Bz, Cz as gather -> field product ->
-row sums over COO entries.  Plain tensor code; the JAX package computes it
-outside any Pallas kernel too.
+The prover's linear algebra: Az, Bz, Cz over COO entries kept in row
+order with their CSR row offsets, one K12 launch a matvec on the card
+(fields/kernels.py ``r1cs_matvec``: gather, field product, exact row sum),
+its plain digit version on the CPU.  The JAX package computes it with XLA
+(``segment_sum`` + ``partial_reduce``), outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..fields import NLIMBS, Field
-from ..fields.ops import from_digits, to_digits
+from ..fields.kernels import r1cs_matvec
 from ..r1cs.cs import R1CSShape
 
 MAX_ROW_NNZ = 1 << 15  # entries a row the lazy row sum is sized for (its bound is 2^30)
 
 
+def row_offsets(rows: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """CSR offsets (num_rows + 1,) of row-sorted entries: entry k lies in row
+    r iff offsets[r] <= k < offsets[r + 1]."""
+    return torch.searchsorted(rows, torch.arange(num_rows + 1, dtype=rows.dtype,
+                                                 device=rows.device))
+
+
 @dataclasses.dataclass
 class DeviceMatrix:
-    rows: torch.Tensor  # (nnz,) int64
+    rows: torch.Tensor  # (nnz,) int64, nondecreasing (DeviceShape.build sorts them)
     cols: torch.Tensor  # (nnz,) int64
     vals: torch.Tensor  # (nnz, 8) Montgomery-encoded coefficients
     num_rows: int
+    offsets: torch.Tensor | None = None  # (num_rows + 1,) int64; None: from the rows
+
+    def __post_init__(self):
+        if self.offsets is None:
+            self.offsets = row_offsets(self.rows, self.num_rows)
 
     def matvec(self, field: Field, z: torch.Tensor) -> torch.Tensor:
-        """M @ z over the field; z: (num_vars, 8) -> (num_rows, 8).
+        """M @ z over the field; z: (num_vars, 8) -> (num_rows, 8), canonical.
 
-        The products are canonical (< p); a row's sum is accumulated digit by
-        digit in int64 (``index_add_`` on integers is exact whatever the
-        order, so the result is the same on every device) and reduced once.
-        The Pasta primes leave no room for a lazy 256-bit sum (4p > 2^256), so
-        ``reduce_wide16`` folds the bits above 2^256 back through R^2."""
-        prods = field.mul16(to_digits(self.vals), to_digits(z[self.cols]))
-        acc = torch.zeros((self.num_rows, prods.shape[-1]), dtype=torch.int64, device=z.device)
-        acc.index_add_(0, self.rows, prods)
-        return from_digits(field.reduce_wide16(acc))
+        K12 on the card: a warp a row adds the row's products in 9 limbs
+        and reduces once.  The plain version sums the products' 16-bit
+        digits by row in int64 (``index_add_`` on integers is exact in any
+        order).  The Pasta primes leave no room for a lazy 256-bit sum
+        (4p > 2^256), so both fold the bits above 2^256 back through R^2."""
+        return r1cs_matvec(field.params.name, self.rows, self.offsets, self.cols, self.vals, z)
 
 
 @dataclasses.dataclass
@@ -57,12 +69,28 @@ class DeviceShape:
             rows, cols, coeffs = coo
             if len(rows) and int(np.bincount(np.asarray(rows)).max()) > MAX_ROW_NNZ:
                 raise ValueError(f"a row has more than {MAX_ROW_NNZ} entries")
-            vals = (field.encode([int(c) for c in coeffs], device) if len(coeffs)
+            # Row order (a stable sort), so K12 reads each row's entries from
+            # its CSR offsets; a row sum is exact in any order.
+            order = np.argsort(np.asarray(rows, dtype=np.int64), kind="stable")
+            vals = (field.encode([int(coeffs[k]) for k in order], device) if len(coeffs)
                     else torch.zeros((0, NLIMBS), dtype=torch.int32, device=device))
-            idx = [torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device) for a in (rows, cols)]
+            idx = [torch.from_numpy(np.asarray(a, dtype=np.int64)[order]).to(device)
+                   for a in (rows, cols)]
             return DeviceMatrix(idx[0], idx[1], vals, shape.num_cons)
 
         return cls(shape, mk(shape.a_coo), mk(shape.b_coo), mk(shape.c_coo))
+
+    @functools.cached_property
+    def entries_by_column(self) -> tuple:
+        """A's, B's and C's entries together, sorted by column (stable):
+        (matrix index 0, 1, 2; rows; cols; vals), for the gamma-matvec's
+        column sums (spartan/snark.py), one K11 segment a column."""
+        mats = (self.a, self.b, self.c)
+        mat = torch.cat([torch.full_like(m.rows, k) for k, m in enumerate(mats)])
+        rows, cols, vals = (torch.cat([getattr(m, k) for m in mats])
+                            for k in ("rows", "cols", "vals"))
+        order = torch.sort(cols, stable=True).indices
+        return mat[order], rows[order], cols[order], vals[order]
 
     def z_vector(self, field: Field, w: torch.Tensor, x: torch.Tensor,
                  u: torch.Tensor) -> torch.Tensor:

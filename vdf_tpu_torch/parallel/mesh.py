@@ -14,7 +14,8 @@ stood.  Axes:
     meet in one collective.
 
 Every function runs on the rank's device with the port's kernels (K1, K2,
-and K3-K6 and K9 through ``msm``) and plain tensor code, and runs its
+K3-K6 and K9 through ``msm``, K10 and K12 for the field ops and the
+matvec) and torch glue, and runs its
 collective even on a mesh of one rank, as ``shard_map`` does on one
 device.  Contiguous blocks are split evenly: rank r of s takes items
 [r n / s, (r + 1) n / s).  Every rank passes the same (replicated) inputs;
@@ -125,8 +126,10 @@ def sharded_check(vdf, t: int, mesh: Mesh):
 
 def sharded_matvec(field: Field, dev_mat, z: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Entry-sharded sparse matvec: each rank multiplies its contiguous
-    block of the COO entries with the port's ``DeviceMatrix`` arithmetic,
-    giving canonical partial row vectors (num_rows, 8); the partials are
+    block of the row-sorted COO entries with the port's ``DeviceMatrix``
+    arithmetic (K12 on the card; the block's CSR offsets come from
+    ``torch.searchsorted`` on its rows, so its first and last rows may be
+    partial), giving canonical partial row vectors (num_rows, 8); the partials are
     ``all_gather``ed and field-added in rank order, so every rank holds the
     same canonical M @ z.  z is replicated.
 

@@ -59,4 +59,4 @@ def fold_top(field: Field, evals: torch.Tensor, r: torch.Tensor) -> torch.Tensor
     f = field
     half = evals.shape[0] // 2
     lo, hi = evals[:half], evals[half:]
-    return f.add(lo, f.mul(r.expand_as(lo), f.sub(hi, lo)))
+    return f.fold(lo, r, f.sub(hi, lo))

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ..fields import NLIMBS, Field
-from ..fields.ops import from_digits, to_digits
+from ..fields.kernels import field_segsum
 from ..nova.pedersen import CommitmentKey
 from ..poseidon.int_poseidon import IntTranscript
 from ..utils.profiling import PhaseTimer
@@ -84,34 +84,30 @@ def _matvec_padded(field: Field, mat, z: torch.Tensor, n_pad: int) -> torch.Tens
 
 
 def _gamma_entries(field: Field, shape, eq_rx: torch.Tensor, gamma: int):
-    """Every entry of A, B and C at once: (cols, v eq_rx[row] gamma^k), with
+    """Every entry of A, B and C at once, in column order
+    (``DeviceShape.entries_by_column``): (cols, v eq_rx[row] gamma^k), with
     k = 0, 1, 2 for A, B, C: eq_rx scaled by the three weights in one batched
     product, then one product an entry."""
     f = field
-    mats = (shape.a, shape.b, shape.c)
+    mat, rows, cols, vals = shape.entries_by_column
     weights = f.encode([1, gamma, gamma * gamma], eq_rx.device)
     scaled = f.mul(eq_rx[None], weights[:, None]).reshape(-1, NLIMBS)  # (3 n1, 8)
-    rows = torch.cat([m.rows + k * eq_rx.shape[0] for k, m in enumerate(mats)])
-    cols = torch.cat([m.cols for m in mats])
-    vals = torch.cat([m.vals for m in mats])
-    return cols, f.mul(vals, scaled[rows])
+    return cols, f.mul(vals, scaled[mat * eq_rx.shape[0] + rows])
 
 
 def _gamma_matrix_vector(field: Field, shape, eq_rx: torch.Tensor, gamma: int,
                          n_cols_pad: int) -> torch.Tensor:
     """m(y) = sum_rows (A + gamma B + gamma^2 C)[row, y] eq_rx[row], by column:
-    the entries' canonical products as 16-bit digits, ``index_add_`` into int64
-    column sums, one carry resolve and reduction.  A column's digit sum is
-    below its entry count times 2^16; ``reduce_wide16`` takes sums of up to
-    2^30 values, so up to 2^30 entries in all are exact (the bench IVC at
-    t = 32 has 99,735 on the primary side, 146 of them in its largest
-    column)."""
+    the entries' products in column order, one K11 segment a column (their
+    CSR offsets from ``torch.searchsorted``; an empty column sums to 0).  A
+    sum is exact for up to 2^30 entries in all (the bench IVC at t = 32 has
+    99,735 on the primary side, 146 of them in its largest column)."""
     cols, prods = _gamma_entries(field, shape, eq_rx, gamma)
     if prods.shape[0] > MAX_SUM_ROWS:
         raise ValueError(f"{prods.shape[0]} matrix entries exceed {MAX_SUM_ROWS}")
-    acc = torch.zeros((n_cols_pad, 2 * NLIMBS), dtype=torch.int64, device=prods.device)
-    acc.index_add_(0, cols, to_digits(prods))
-    return from_digits(field.reduce_wide16(acc))
+    offsets = torch.searchsorted(cols, torch.arange(n_cols_pad + 1, dtype=cols.dtype,
+                                                    device=cols.device))
+    return field_segsum(field.params.name, prods, offsets)
 
 
 def _eval_gamma_matrix(field: Field, shape, eq_rx, eq_ry, gamma: int) -> torch.Tensor:

@@ -17,19 +17,26 @@ import functools
 
 import torch
 
-from ..fields import Field
-from ..fields.ops import from_digits, to_digits
+from ..fields import NLIMBS, Field
+from ..fields.kernels import MAX_SEGMENT, field_segsum
 from ..poseidon.int_poseidon import IntTranscript
 
-MAX_SUM_ROWS = 1 << 30  # reduce_wide16 takes digit sums of up to 2^30 canonical values
+MAX_SUM_ROWS = MAX_SEGMENT  # K11 (and reduce_wide16) take sums of up to 2^30 values
 
 
 def _sum_rows(field: Field, arr: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Exact field sum of canonical elements over axis ``dim``: 16-bit digit
-    sums in int64, then one reduction."""
+    """Exact field sum of canonical elements over axis ``dim``: the other
+    axes' elements are equal segments of one K11 launch (on the CPU its
+    plain version: 16-bit digit sums in int64, then one reduction)."""
     if arr.shape[dim] > MAX_SUM_ROWS:
         raise ValueError(f"a sum of {arr.shape[dim]} elements exceeds {MAX_SUM_ROWS}")
-    return from_digits(field.reduce_wide16(to_digits(arr).sum(dim)))
+    moved = arr.movedim(dim, -2)
+    lead = moved.shape[:-2]
+    segments = 1
+    for k in lead:
+        segments *= k
+    out = field_segsum(field.params.name, moved.reshape(-1, NLIMBS), segments=segments)
+    return out.reshape(*lead, NLIMBS)
 
 
 @functools.cache
@@ -124,7 +131,7 @@ def sumcheck_prove(field: Field, tr: IntTranscript, polys: list[torch.Tensor], d
         messages.append(tuple(evals.unbind(0)))
         r = tr.squeeze()
         rs.append(r)
-        p = f.add(p[:, : diff.shape[1]], f.mul(f.encode(r, p.device).expand_as(diff), diff))
+        p = f.fold(p[:, : diff.shape[1]], f.encode(r, p.device), diff)
     return rs, p[:, 0], messages
 
 
