@@ -1663,20 +1663,20 @@ def _prove_timed(pp, z0: list, steps: int, snapshot_at: int | None = None):
     per_step = {k: (v - before[k]) / (steps - 1) for k, v in {**FK.LAUNCHES,
                                                              **CK.LAUNCHES}.items()}
     timed = step_s[1:]
-    split = {name: secs / len(timed) for name, secs in prover.timer.totals.items()}
+    split = {name: secs / len(timed) for name, secs in prover.timer.under().items()}
     split["other"] = sum(timed) / len(timed) - sum(split.values())
     return prover, base_s, step_s, split, per_step, snap
 
 
 # The device engine's fold, split: fold_cached's own parts and, inside the
-# fused pass, its four parts.  The seeding of the product cache (the first
+# fused pass, its three parts.  The seeding of the product cache (the first
 # primary fold) counts in "fold other".
 FOLD_PARTS = {"encode x, u, r": ("Field", "encode"), "fused pass": ("Side", "_fold_strict"),
+              "read + affine": ("Side", "_affine_of"),
               "challenge": ("ivc", "fold_challenge"), "instance fold": ("Side", "fold_instance"),
               "witness fold": ("Side", "_wfoldp")}
 FUSED_PARTS = {"lift (K3)": ("Side", "_lift"), "matvecs + cross term": ("Side", "_cross"),
-               "K = 2 commit": ("CommitmentKey", "commit_batch"),
-               "read + affine": ("Side", "_affine_of")}
+               "K = 2 commit": ("CommitmentKey", "commit_batch")}
 
 
 @contextlib.contextmanager
@@ -2093,11 +2093,12 @@ def phase_compress(ivc: dict, card: str) -> tuple[dict, dict, dict]:
     again, split_s = clock(lambda: ivc_compress(pp, proof, timer))
     if serialize_compressed(pp, again) != blob:
         raise SystemExit("compress: the instrumented compress gave other bytes")
-    split = dict(timer.totals)
+    split = timer.under()
     for side in (pp.primary, pp.secondary):
         name = side.curve_name
-        split[f"{name}/other"] = split[name] - sum(v for k, v in timer.totals.items()
-                                                  if k.startswith(name + "/"))
+        parts = timer.under(name)
+        split.update(parts)
+        split[f"{name}/other"] = split[name] - sum(parts.values())
     split["other"] = split_s - split["closing fold"] - split["pallas"] - split["vesta"]
 
     err: dict = {}

@@ -11,6 +11,10 @@
     the product cache guarded.
   * With no card the device engine raises; a ``slow`` test runs the
     full-shape device engine on the CPU against the native one (~30 min on one core).
+  * The prover's spans: its default timer is off (a step never calls its
+    sync); a recording one gets each section of a synthesis once a side and,
+    on the device engine, the encode of a deferred witness and each part of
+    a fold once a fold, under names the benchmark's readers do not sum.
 
 Equality is exact: host ints, affine points, canonical witness values.
 """
@@ -28,6 +32,7 @@ from vdf_tpu_torch import interop
 from vdf_tpu_torch.errors import KernelError, NovaError
 from vdf_tpu_torch.fields import get_field, get_int_field
 from vdf_tpu_torch.nova import InverseMinRootCircuit
+from vdf_tpu_torch.nova.augmented import AugmentedInputs
 from vdf_tpu_torch.nova.ivc import (
     CanonicalWitness,
     HostInstance,
@@ -43,6 +48,7 @@ from vdf_tpu_torch.r1cs.cs import ShapeCS, Variable
 from vdf_tpu_torch.r1cs.gadgets import AllocatedNum
 from vdf_tpu_torch.r1cs.witness import WitnessCS
 from vdf_tpu_torch.utils import TEST_SEED, XorShiftRng, field_random
+from vdf_tpu_torch.utils.profiling import PhaseTimer
 
 torch.set_num_threads(1)  # many small tensor ops; see tests/test_torch_commit.py
 
@@ -189,6 +195,70 @@ def test_resume_extends_the_chain(proven):
     f = get_int_field("Fq")
     x, y, i = longer.z_i  # one inverse step of T rounds back from zn
     assert [v % f.p for v in forward_eval(x, y, i, T)] == zn
+
+
+# -- the prover's spans
+
+# The spans the benchmark's readers sum (perfbench/metrics/): ivc.synth_ms and
+# ivc.fold_ms by prefix, the compress readers by suffix.  A span inside one
+# of those must match none of them, or its time counts twice.
+READER_PREFIXES = ("fold/", "synthesize/")
+READER_SUFFIXES = ("/two IPAs", "/outer sumcheck", "/inner sumcheck", "/gamma-matvec")
+SYNTH_PARTS = ("alloc", "h_in", "ro", "fold", "base", "stepf", "h_out")
+FOLD_PARTS = ("commit", "read", "challenge", "instance", "witness")
+STEP_SPANS = {"synthesize/Fq", "synthesize/Fp", "fold/primary", "fold/secondary",
+              "commit/pallas", "commit/vesta"}
+
+
+def _unread(names) -> bool:
+    return not any(n.startswith(READER_PREFIXES) or n.endswith(READER_SUFFIXES) for n in names)
+
+
+def test_chain_step_spans(proven):
+    pp, proof, _, _ = proven
+    prover = RecursiveIVC.resume(pp, copy.deepcopy(proof))
+    syncs = []
+    prover.timer.sync = lambda: syncs.append(1)
+    prover.prove_step()  # the default timer: off
+    assert syncs == [] and not prover.timer.totals and not prover.timer.counts
+    prover.timer = t = type(prover.timer)(prover.timer.sync)
+    prover.prove_step()
+    sections = {f"synth.{part}/{fld}": fld for part in SYNTH_PARTS for fld in ("Fq", "Fp")}
+    assert set(t.counts) - STEP_SPANS == set(sections) and _unread(sections)
+    for name, fld in sections.items():
+        assert t.counts[name] == 1 and t.parents[name] == f"synthesize/{fld}"
+    assert set(t.under()) == set(t.counts) - set(sections)
+    assert len(syncs) == 2 * sum(t.counts.values())
+
+
+def test_deferred_synthesis_spans_its_encode(proven):
+    """On the device engine the witness's encode after a synthesis is a span
+    of its own, outside ``synthesize/*``."""
+    pp, proof, z0, _ = proven
+    prover = RecursiveIVC.resume(pp, copy.deepcopy(proof))
+    prover.timer = t = PhaseTimer()
+    dev = dataclasses.replace(pp.primary, engine="device", device=torch.device("cpu"))
+    inp = AugmentedInputs(pp.digest, 0, z0, z0, HostRelaxedInstance.default(), None, None)
+    u, w, _ = prover._synth(dev, inp)
+    assert u.comm_w is None and isinstance(w, CanonicalWitness)
+    assert t.counts["synth.encode/Fq"] == 1 and t.parents["synth.encode/Fq"] is None
+    assert set(t.under()) == {"synthesize/Fq", "synth.encode/Fq"} and _unread(["synth.encode/Fq"])
+
+
+def test_device_fold_spans(small_sides):
+    """Each part of fold_cached once a fold, whether the strict witness's
+    commit was deferred (fused with T's) or done (T's alone)."""
+    dev, nat = small_sides
+    f = get_field("Fq")
+    (x1, w1), (x2, w2) = _strict_instances(2)
+    t = PhaseTimer()
+    U, W, E, _, _, zp = dev.fold_cached(
+        1, HostRelaxedInstance.default(), dev.zero_w(), dev.zero_e(), HostInstance(None, x1),
+        CanonicalWitness(f.encode_canonical(w1, "cpu")), None, timer=t)
+    dev.fold_cached(1, U, W, E, HostInstance(nat.host_plane.commit(w2), x2),
+                    dev._lift(f.encode_canonical(w2, "cpu")), zp, timer=t)
+    assert dict(t.counts) == {f"fold.{part}/pallas": 2 for part in FOLD_PARTS}
+    assert _unread(t.counts)
 
 
 # -- the port against the JAX package

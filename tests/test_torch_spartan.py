@@ -59,6 +59,7 @@ from vdf_tpu_torch.spartan.snark import (
     _eval_gamma_matrix,
     _gamma_matrix_vector,
 )
+from vdf_tpu_torch.utils.profiling import PhaseTimer
 
 torch.set_num_threads(1)  # many small tensor ops; see tests/test_torch_commit.py
 
@@ -301,7 +302,14 @@ def test_ipa_prove_equals_host_tier(f):
     rng = np.random.default_rng(SEED + 1)
     a, b = _ints(rng, IPA_N, q), _ints(rng, IPA_N, q)
     ck = commitment_key("pallas", IPA_N, device=CPU)
-    got = ipa_prove(f, ck, f.encode(a, CPU), f.encode(b, CPU), IntTranscript("Fq"))
+    timer = PhaseTimer()
+    got = ipa_prove(f, ck, f.encode(a, CPU), f.encode(b, CPU), IntTranscript("Fq"), timer)
+    # four spans a round, none ending as the benchmark's compress readers' do
+    rounds = IPA_N.bit_length() - 1
+    assert dict(timer.counts) == {f"pallas/ipa.{part}": rounds
+                                  for part in ("commit", "read", "transcript", "fold")}
+    assert not any(n.endswith(("/two IPAs", "/outer sumcheck", "/inner sumcheck",
+                               "/gamma-matvec")) for n in timer.counts)
     gens, h = host.host_ck("pallas", IPA_N)
     want = host.ipa_prove_ints("pallas", q, gens, h, a, b, IntTranscript("Fq"))
     c = ck.curve

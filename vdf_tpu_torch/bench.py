@@ -274,7 +274,7 @@ def prove_chain(pp, z0: list, n: int, start, device) -> dict:
     if not ivc_verify(pp, proof, n, z0, list(start)):
         raise BenchError(f"the {engine} engine's proof at t={pp.t}, n={n} does not verify")
     return {"step_s": step_s, "z_n": [int(v) for v in proof.z_i],
-            "phases": {k: round(v / (n - 2), 4) for k, v in sorted(ivc.timer.totals.items())}}
+            "phases": {k: round(v / (n - 2), 4) for k, v in sorted(ivc.timer.under().items())}}
 
 
 def fold_pair(t: int, n: int, engine: str, device) -> tuple:

@@ -46,8 +46,10 @@ Layouts (int32 limb bit patterns, points stacked ``(..., 3, 8)``):
                            first -> (B, 3, 8): sum_w 2^(12 w) S_w
 
 ``LAUNCHES`` counts wrapper calls that launched their kernel (K5 is three
-passes a call and K6 two, each counted once), under a lock: threads launch
-at once (nova/pipeline.py).
+passes a call and K6 two, each counted once), and ``HOST_S``, keyed like
+it, sums each wrapper's host seconds from its entry to its return (as
+fields/kernels.py's), under a lock: threads launch at once
+(nova/pipeline.py).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ import torch
 
 from ..errors import KernelError
 from ..fields import FIELDS, NLIMBS, get_field
+from ..fields.kernels import host_timed
 from ..fields.ops import from_digits, to_digits
 from .point import (
     add16,
@@ -117,13 +120,16 @@ LAUNCHES = {
 }
 
 
+HOST_S = dict.fromkeys(LAUNCHES, 0.0)
 _COUNT_LOCK = threading.Lock()
+_timed = functools.partial(host_timed, HOST_S, _COUNT_LOCK)
 
 
 def reset_launches() -> None:
     with _COUNT_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+            HOST_S[name] = 0.0
 
 
 def count_launch(counter: str) -> None:
@@ -250,6 +256,7 @@ def key_item(keys: torch.Tensor) -> torch.Tensor:
     return (keys.to(torch.int64) + (1 << 31)) & (KEY32_ITEMS - 1)
 
 
+@_timed("canon_digits")
 def canon_digits(field_name: str, scalars: torch.Tensor, m_pad: int,
                  window_rows: bool = False, key_bits: int | None = None) -> torch.Tensor:
     """K3 mode 0 (replaces pallas_msm._canon_kernel, to_canonical):
@@ -296,6 +303,7 @@ def canon_digits_plain(field_name: str, scalars: torch.Tensor, m_pad: int,
     return make_keys(d, torch.where(items < span, items, 0), bits)  # padding: (0, 0)
 
 
+@_timed("canon_mont")
 def canon_mont(field_name: str, values: torch.Tensor) -> torch.Tensor:
     """K3 mode 1 (replaces pallas_msm._canon_kernel, domain mode): integer
     limbs (N, 8), any 256-bit pattern -> Montgomery form of value mod p."""
@@ -327,6 +335,7 @@ def shift_form(n: int, device) -> str:
     return "group" if n < SHIFT_GROUP_BELOW * _sms(device) else "thread"
 
 
+@_timed("shift_gens")
 def shift_gens(field_name: str, gens: torch.Tensor) -> torch.Tensor:
     """K7 (replaces pallas_msm._shift_gens_kernel): generators (n, 3, 8)
     over ``field_name`` -> (W n, 3, 8), item w n + i = 2^(12 w) G_i, the
@@ -373,6 +382,7 @@ def scan_form(columns: int, rows: int, device) -> str:
     return "group" if columns < SCAN_GROUP_BELOW * _sms(device) else "thread"
 
 
+@_timed("scan")
 def bucket_scan(field_name: str, table: torch.Tensor, keys: torch.Tensor, rows: int):
     """K4 (replaces pallas_msm._scan_kernel and the tail compaction after
     it).  ``keys`` (K, m_pad) of either of K3's widths, sorted along each
@@ -449,6 +459,7 @@ def carry_columns(cols: int) -> int:
     return 1 if cols <= PBLOCK * PBLOCK else 4
 
 
+@_timed("colscan")
 def column_carries(field_name: str, col_sums: torch.Tensor, col_flags: torch.Tensor):
     """K5 (replaces pallas_msm._colscan_kernel): the carry flowing into
     each column, (K, cols, 3, 8); the identity for column 0."""
@@ -570,6 +581,7 @@ def column_carries_plain(field_name: str, col_sums: torch.Tensor, col_flags: tor
 # ---------------------------------------------------------------------
 
 
+@_timed("bucket")
 def bucket_sums(field_name: str, tails: torch.Tensor, tail_col: torch.Tensor,
                 carries: torch.Tensor) -> torch.Tensor:
     """K6 (replaces pallas_msm._bucket_kernel): B_b = tail + carry, bucket
@@ -643,6 +655,7 @@ def bucket_sums_plain(field_name: str, tails: torch.Tensor, tail_col: torch.Tens
 # ---------------------------------------------------------------------
 
 
+@_timed("horner")
 def horner(field_name: str, sums: torch.Tensor) -> torch.Tensor:
     """K9 (replaces pallas_msm._horner_kernel): window sums (B, W, 3, 8),
     least significant window first -> (B, 3, 8), sum_w 2^(12 w) S_w: from

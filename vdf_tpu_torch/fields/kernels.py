@@ -26,14 +26,20 @@ against them, bit for bit.
 ``LAUNCHES`` counts the kernel launches, one per launch, so a run can
 show that its main path went through the kernels; ``STREAMS`` counts them
 by the CUDA stream they went to (``(kernel, stream handle)`` -> launches),
-so a run can show which stream a launch used.  Both are updated under one
-lock: threads launch at once (nova/pipeline.py).
+so a run can show which stream a launch used.  ``HOST_S``, keyed like
+``LAUNCHES``, sums the host seconds of each public wrapper's calls, from
+its entry to its return (the checks, the allocations and the launch; on a
+CPU tensor the plain version): two clock reads a call.  All three are
+updated under one lock (threads launch at once: nova/pipeline.py), and
+``reset_launches`` clears them.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import threading
+import time
 
 import torch
 
@@ -44,6 +50,7 @@ from .params import FIELDS, NLIMBS
 LAUNCHES = {"minroot_eval": 0, "minroot_inverse": 0, "field_ew": 0, "field_segsum": 0,
             "r1cs_matvec": 0}
 STREAMS: collections.Counter = collections.Counter()
+HOST_S = dict.fromkeys(LAUNCHES, 0.0)
 _COUNT_LOCK = threading.Lock()
 
 
@@ -51,7 +58,30 @@ def reset_launches() -> None:
     with _COUNT_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+            HOST_S[name] = 0.0
         STREAMS.clear()
+
+
+def host_timed(host_s: dict, lock: threading.Lock, key: str):
+    """A wrapper's decorator: adds each call's host seconds, entry to
+    return, to ``host_s[key]`` under ``lock``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            dt = time.perf_counter() - t0
+            with lock:
+                host_s[key] += dt
+            return out
+
+        return timed
+
+    return wrap
+
+
+_timed = functools.partial(host_timed, HOST_S, _COUNT_LOCK)
 
 
 def count_launch(name: str, stream: int = 0) -> None:
@@ -95,6 +125,7 @@ def _launch(name: str, field_name: str, x, y, i, t: int):
     return tuple(outs)
 
 
+@_timed("minroot_eval")
 def minroot_eval(field_name: str, x, y, i, t: int):
     """K1: t forward rounds per lane (replaces minroot_eval_tpu)."""
     _check(field_name, t, (x, y, i))
@@ -103,6 +134,7 @@ def minroot_eval(field_name: str, x, y, i, t: int):
     return _launch("minroot_eval", field_name, x, y, i, t)
 
 
+@_timed("minroot_inverse")
 def minroot_inverse(field_name: str, x, y, i, t: int):
     """K2: t inverse rounds per lane (replaces minroot_inverse_tpu)."""
     _check(field_name, t, (x, y, i))
@@ -191,6 +223,7 @@ def _device_of(operands) -> torch.device:
     raise KernelError(f"no kernel for device {dev}")
 
 
+@_timed("field_ew")
 def field_ew(field_name: str, op: str, *operands) -> torch.Tensor:
     """K10: ``op`` elementwise over (..., 8) Montgomery limbs, broadcast as
     torch broadcasts (replaces the XLA field ops of vdf_tpu/fields/ops.py
@@ -255,6 +288,7 @@ def field_ew_plain(field_name: str, op: str, *operands) -> torch.Tensor:
     return from_digits(v)
 
 
+@_timed("field_segsum")
 def field_segsum(field_name: str, x, offsets=None, segments: int | None = None) -> torch.Tensor:
     """K11: the exact field sum of the (n, 8) elements ``x`` over segments
     -> (segments, 8) canonical (replaces vdf_tpu/spartan/sumcheck.py:20
@@ -310,6 +344,7 @@ def field_segsum_plain(field_name: str, x, offsets=None, segments: int | None = 
     return from_digits(f.reduce_wide16(acc))
 
 
+@_timed("r1cs_matvec")
 def r1cs_matvec(field_name: str, rows, offsets, cols, vals, z) -> torch.Tensor:
     """K12: ``M @ z`` for a sparse matrix of nnz entries in row order,
     ``rows``/``cols`` (nnz,) int64 and ``vals`` (nnz, 8) Montgomery, with

@@ -42,6 +42,7 @@ from ..fields.int_field import get_int_field
 from ..r1cs.bits import AllocatedBit, bits_to_lc, num_select, num_to_bits_le_strict
 from ..r1cs.cs import ONE, LinearCombination, ShapeCS
 from ..r1cs.gadgets import AllocatedNum, Num, _is_witness
+from ..utils.profiling import PhaseTimer
 from .circuit import InverseMinRootCircuit
 from .gadgets.ec import AllocatedPoint, const_num
 from .gadgets.instance import (
@@ -126,26 +127,32 @@ class AugmentedCircuit:
 
     # -- synthesis (shared by shape and witness passes) ------------------
 
-    def synthesize(self, cs, inp: AugmentedInputs | None):
+    def synthesize(self, cs, inp: AugmentedInputs | None, timer: PhaseTimer | None = None):
+        """``timer`` (the witness pass's; None: no spans) gets the spans
+        ``synth.<part>/<field>``: "alloc" (the inputs), then one a section,
+        "h_in", "ro", "fold", "base", "stepf" and "h_out"."""
         w = _is_witness(cs)
         arity = self.arity
-        d = Num.from_alloc(_alloc_num(cs, "params", inp.digest if w else None))
+        timer = timer or PhaseTimer(enabled=False)
+        span = lambda part: timer.phase(f"synth.{part}/{self.field_name}")  # noqa: E731
+        with span("alloc"):
+            d = Num.from_alloc(_alloc_num(cs, "params", inp.digest if w else None))
 
-        i_num = _alloc_num(cs, "i", inp.i if w else None)
-        z0 = [
-            _alloc_num(cs, f"z0_{k}", inp.z0[k] if w else None) for k in range(arity)
-        ]
-        z_i = [
-            _alloc_num(cs, f"zi_{k}", inp.z_i[k] if w else None) for k in range(arity)
-        ]
-        U = AllocatedRelaxedInstance.alloc(cs, "U", inp.U if w else None)
-        u = AllocatedInstance.alloc(cs, "u", inp.u if w else None)
-        comm_t = AllocatedPoint.alloc(cs, "comm_t", inp.comm_t if w else None)
+            i_num = _alloc_num(cs, "i", inp.i if w else None)
+            z0 = [
+                _alloc_num(cs, f"z0_{k}", inp.z0[k] if w else None) for k in range(arity)
+            ]
+            z_i = [
+                _alloc_num(cs, f"zi_{k}", inp.z_i[k] if w else None) for k in range(arity)
+            ]
+            U = AllocatedRelaxedInstance.alloc(cs, "U", inp.U if w else None)
+            u = AllocatedInstance.alloc(cs, "u", inp.u if w else None)
+            comm_t = AllocatedPoint.alloc(cs, "comm_t", inp.comm_t if w else None)
 
-        is_base = _is_zero(cs, Num.from_alloc(i_num), "base")
+            is_base = _is_zero(cs, Num.from_alloc(i_num), "base")
 
         # -- input-state hash: H(d, i, z0, z_i, U), checked vs u.X[0] ----
-        with cs.namespace("h_in"):
+        with span("h_in"), cs.namespace("h_in"):
             tr = TranscriptGadget(cs, self.field_name, name="hin")
             tr.absorb(d, i_num, *z0, *z_i, *U.parts().absorb_elements())
             h_in, _ = _truncated_squeeze(cs, tr, HASH_BITS, "hin")
@@ -158,7 +165,7 @@ class AugmentedCircuit:
         )
 
         # -- fold challenge from the in-circuit RO -----------------------
-        with cs.namespace("ro"):
+        with span("ro"), cs.namespace("ro"):
             tr = TranscriptGadget(cs, self.field_name, name="ro")
             tr.absorb(
                 d,
@@ -170,9 +177,9 @@ class AugmentedCircuit:
             r_bits = r_all_bits[:CHALLENGE_BITS]
 
         # -- the fold, then base-case select -----------------------------
-        with cs.namespace("fold"):
+        with span("fold"), cs.namespace("fold"):
             U_fold = U.fold(cs, u, comm_t, r_bits, self.other_modulus)
-        with cs.namespace("base"):
+        with span("base"), cs.namespace("base"):
             if self.is_primary:
                 U_base = RelaxedParts.default(cs)
             else:
@@ -180,7 +187,7 @@ class AugmentedCircuit:
             U_new = U_base.select(cs, is_base, U_fold, "unew")
 
         # -- one application of F (z input pinned to z0 at the base) -----
-        with cs.namespace("stepf"):
+        with span("stepf"), cs.namespace("stepf"):
             z_in = [
                 num_select(cs, is_base, Num.from_alloc(a), Num.from_alloc(b), f"zsel{k}")
                 for k, (a, b) in enumerate(zip(z0, z_i))
@@ -191,7 +198,7 @@ class AugmentedCircuit:
         i_next = Num(i_num.lc().add(ONE, 1), (inp.i + 1) if w else None)
 
         # -- output-state hash + public IO -------------------------------
-        with cs.namespace("h_out"):
+        with span("h_out"), cs.namespace("h_out"):
             tr = TranscriptGadget(cs, self.field_name, name="hout")
             tr.absorb(d, i_next, *z0, *z_next, *U_new.absorb_elements())
             h_out, _ = _truncated_squeeze(cs, tr, HASH_BITS, "hout")
@@ -220,9 +227,11 @@ class AugmentedCircuit:
         self.synthesize(cs, None)
         return cs.shape()
 
-    def witness(self, inp: AugmentedInputs, check: bool = False):
+    def witness(self, inp: AugmentedInputs, check: bool = False,
+                timer: PhaseTimer | None = None):
         """Returns (cs, z_next ints).  cs.aux is the witness (host ints);
-        cs.inputs the two public IO values."""
+        cs.inputs the two public IO values.  ``timer`` gets the synthesis's
+        spans (``synthesize``)."""
         from ..r1cs.cs import lc_sink
         from ..r1cs.witness import WitnessCS
 
@@ -232,7 +241,7 @@ class AugmentedCircuit:
         # no-op sink (r1cs/cs.py::lc_sink): synthesis is a large share of a
         # fold's host time.
         with lc_sink(not check):
-            z_next = self.synthesize(cs, inp)
+            z_next = self.synthesize(cs, inp, timer)
         return cs, z_next
 
 

@@ -91,8 +91,9 @@ def ivc_compress(pp: IVCParams, proof: IVCProof,
 
     ``timer`` gets the spans "closing fold" and "<curve>" (a side's whole
     argument), and on the device engine "<curve>/<part>" for the parts of
-    ``spartan_prove``; give it a ``sync`` to time the card's work."""
-    timer = timer or PhaseTimer()
+    ``spartan_prove``; give it a ``sync`` to time the card's work.  None: no
+    spans."""
+    timer = timer or PhaseTimer(enabled=False)
     d = pp.digest
     with timer.phase("closing fold"):
         U_sec, W_sec, E_sec, comm_t, _, _ = pp.secondary.fold_cached(

@@ -343,8 +343,12 @@ class Side:
 
     def commit_w(self, w: torch.Tensor) -> tuple | None:
         """Pedersen commit of a Montgomery device handle -> affine ints."""
+        return self._affine_of(self._commit_one(w))[0]
+
+    def _commit_one(self, w: torch.Tensor):
+        """One commit -> a Point of (1, 8), not read."""
         pt = self._tp_commit(w) if self._use_tp else self.ck.commit(w)
-        return self._affine_of(type(pt)(*(v[None] for v in pt)))[0]
+        return type(pt)(*(v[None] for v in pt))
 
     def _tp_commit(self, w: torch.Tensor):
         """The commit under tensor parallelism: ``sharded_msm`` over the key's
@@ -409,15 +413,18 @@ class Side:
         t = f.sub(f.sub(f.add(m[0], m[1]), m[2]), cz1)
         return t, zp2
 
+    def _span(self, timer, part: str):
+        """The span of one part of a fold on this side, on ``timer``."""
+        return timer.phase(f"fold.{part}/{self.curve_name}")
+
     def _fold_strict(self, zp1, u1, w2c: CanonicalWitness, x2):
         """The whole strict-side fold data plane: K3's domain mode lifts the
         fresh witness, its three matvecs, the cross term, ONE K = 2 commit
-        of [w2, T] against the shared table, ONE read of both points.
-        -> (w2 Montgomery, T, zp2, comm_W2, comm_T)."""
+        of [w2, T] against the shared table, not yet read (the caller reads
+        both points at once).  -> (w2 Montgomery, T, zp2, Point of (2, 8))."""
         w2 = self._lift(w2c.limbs)
         t, zp2 = self._cross(zp1, u1, w2, x2)
-        comm_w, comm_t = self._affine_of(self._commit_pair(w2, t))
-        return w2, t, zp2, comm_w, comm_t
+        return w2, t, zp2, self._commit_pair(w2, t)
 
     def _wfoldp(self, W1, E1, zp1, w2, t, zp2, r):
         """The six linear folds a + r b: W, E and the cached products, two
@@ -475,6 +482,7 @@ class Side:
         w2,
         zprod,
         check_cache: bool = False,
+        timer=None,
     ):
         """``fold`` with the running z-products cached across steps.
         ``zprod`` is the (Az, Bz, Cz) tuple of the running accumulator, or
@@ -493,6 +501,13 @@ class Side:
         committed instance's ``w2`` must be a Montgomery tensor.  Anything
         else raises NovaError.
 
+        On the device engine ``timer`` (None: no spans) gets a span
+        ``fold.<part>/<curve>`` for each part of the fold: "commit" (the
+        instances' X and u encoded, the lift, the matvecs, the cross term and
+        the commit), "read" (the
+        commitments read back as affine ints), "challenge", "instance" (the
+        instance fold on ``IntCurve``) and "witness" (the linear folds).
+
         Returns (U', W', E', comm_T, r, zprod'); zprod' is None on the
         native engine, whose fold is the six-matvec one."""
         if not self.use_device:
@@ -504,28 +519,38 @@ class Side:
                 f"commit is deferred), a committed one a Montgomery tensor; got comm_w="
                 f"{'None' if deferred else 'set'} with a {type(w2).__name__}"
             )
-        x1, u1 = self._x_u_enc(U)
-        x2, _ = self._x_u_enc(u)
-        if zprod is None:
-            if U.comm_w is None and U.u == 0 and not any(U.X):
-                zprod = self._zero_products()
+        timer = timer or PhaseTimer(enabled=False)
+        with self._span(timer, "commit"):
+            x1, u1 = self._x_u_enc(U)
+            x2, _ = self._x_u_enc(u)
+            if zprod is None:
+                if U.comm_w is None and U.u == 0 and not any(U.X):
+                    zprod = self._zero_products()
+                else:
+                    zprod = self._products(W, x1, u1)
+            elif check_cache:
+                ref = self._products(W, x1, u1)
+                if not all(torch.equal(a, b) for a, b in zip(zprod, ref)):
+                    raise NovaError("fold_cached: stale z-product cache for (U, W)")
+            if deferred:
+                w2, t, zprod2, pts = self._fold_strict(zprod, u1, w2, x2)
             else:
-                zprod = self._products(W, x1, u1)
-        elif check_cache:
-            ref = self._products(W, x1, u1)
-            if not all(torch.equal(a, b) for a, b in zip(zprod, ref)):
-                raise NovaError("fold_cached: stale z-product cache for (U, W)")
+                t, zprod2 = self._cross(zprod, u1, w2, x2)
+                pts = self._commit_one(t)
+        with self._span(timer, "read"):
+            comms = self._affine_of(pts)
         if deferred:
-            w2, t, zprod2, comm_w, comm_t = self._fold_strict(zprod, u1, w2, x2)
-            u.comm_w = comm_w
+            u.comm_w, comm_t = comms
         else:
-            t, zprod2 = self._cross(zprod, u1, w2, x2)
-            comm_t = self.commit_w(t)
-        r = fold_challenge(self.tr_field, d, U, u, comm_t)
-        U_new = self.fold_instance(U, u, comm_t, r)
-        W_new, E_new, zprod_new = self._wfoldp(
-            W, E, zprod, w2, t, zprod2, self.field.encode(r, self.device)
-        )
+            comm_t = comms[0]
+        with self._span(timer, "challenge"):
+            r = fold_challenge(self.tr_field, d, U, u, comm_t)
+        with self._span(timer, "instance"):
+            U_new = self.fold_instance(U, u, comm_t, r)
+        with self._span(timer, "witness"):
+            W_new, E_new, zprod_new = self._wfoldp(
+                W, E, zprod, w2, t, zprod2, self.field.encode(r, self.device)
+            )
         return U_new, W_new, E_new, comm_t, r, zprod_new
 
     def fold_instance(
@@ -642,10 +667,12 @@ class IVCProof:
 
 
 def _timer(pp: IVCParams) -> PhaseTimer:
+    """The prover's default timer: disabled, with the ``sync`` a recording
+    timer built from it (``type(t)(t.sync)``) should use."""
     dev = pp.primary.device
     if pp.primary.use_device and dev.type == "cuda":
-        return PhaseTimer(sync=lambda: torch.cuda.synchronize(dev))
-    return PhaseTimer()
+        return PhaseTimer(sync=lambda: torch.cuda.synchronize(dev), enabled=False)
+    return PhaseTimer(enabled=False)
 
 
 class RecursiveIVC:
@@ -655,7 +682,7 @@ class RecursiveIVC:
     def __init__(self, pp: IVCParams, z0: list[int], debug: bool = False):
         self.pp = pp
         self.debug = debug
-        self.timer = _timer(pp)  # per-phase wall clock
+        self.timer = _timer(pp)  # the phases' spans: off until a caller swaps one in
         p = pp.primary.field.params.modulus
         self.z0 = [int(z) % p for z in z0]
 
@@ -716,8 +743,9 @@ class RecursiveIVC:
         cross term, and proof() finalizes a still-dangling instance.  The
         native engine, and ``defer_commit=False`` callers that need the
         commitment at once (the base step's primary instance), commit here."""
-        with self.timer.phase(f"synthesize/{side.field.params.name}"):
-            cs, z_next = side.circuit.witness(inp, check=self.debug)
+        name = side.field.params.name
+        with self.timer.phase(f"synthesize/{name}"):
+            cs, z_next = side.circuit.witness(inp, check=self.debug, timer=self.timer)
         if self.debug and cs.failed:
             raise SynthesisError(f"unsatisfied: {cs.failed[:10]}")
         if len(cs.aux) != side.shape.num_aux:
@@ -728,7 +756,8 @@ class RecursiveIVC:
             # Canonical limbs by bytes on the host; the fused fold lifts
             # them on the device (K3's domain mode) instead of ~15k host
             # bigint mulmods.
-            w = CanonicalWitness(side.field.encode_canonical(cs.aux, side.device))
+            with self.timer.phase(f"synth.encode/{name}"):
+                w = CanonicalWitness(side.field.encode_canonical(cs.aux, side.device))
             return HostInstance(None, [int(v) for v in cs.inputs]), w, z_next
         with self.timer.phase(f"commit/{side.curve_name}"):
             w, comm = side.commit_ints(cs.aux)
@@ -757,6 +786,7 @@ class RecursiveIVC:
                 self.l_w_secondary,
                 self._zp_secondary,
                 check_cache=self.debug,
+                timer=self.timer,
             )
 
         # 2. primary circuit: verifies that fold, applies F.
@@ -784,6 +814,7 @@ class RecursiveIVC:
                 l_w_p,
                 self._zp_primary,
                 check_cache=self.debug,
+                timer=self.timer,
             )
 
         # 4. secondary circuit: verifies THAT fold (trivial F).

@@ -35,6 +35,7 @@ from ..curves import Point, msm
 from ..fields import NLIMBS, Field
 from ..nova.pedersen import CommitmentKey
 from ..poseidon.int_poseidon import IntTranscript
+from ..utils.profiling import PhaseTimer
 from .host import absorb_point_ints, squeeze_challenge_128
 from .multilinear import product_table
 from .sumcheck import _sum_rows
@@ -56,9 +57,16 @@ def _with_h(ck: CommitmentKey, n: int, vals: torch.Tensor, c: torch.Tensor) -> t
 
 
 def ipa_prove(field: Field, ck: CommitmentKey, a: torch.Tensor, b: torch.Tensor,
-              tr: IntTranscript) -> IPAProof:
-    """a (committed, over ck.gens[:n]) and b: (n, 8), n a power of two <= ck.n."""
+              tr: IntTranscript, timer: PhaseTimer | None = None) -> IPAProof:
+    """a (committed, over ck.gens[:n]) and b: (n, 8), n a power of two <= ck.n.
+    ``timer`` (None: no spans) gets four spans a round, "<curve>/ipa.<part>":
+    "commit" (c, sigma and the K = 2 commit), "read" (L and R read back as
+    affine ints), "transcript" (absorbed, the challenge squeezed, it and its
+    inverse encoded) and "fold" (a, b and the weights folded)."""
     f = field
+    timer = timer or PhaseTimer(enabled=False)
+    curve = ck.curve.params.name
+    span = lambda part: timer.phase(f"{curve}/ipa.{part}")  # noqa: E731
     n = a.shape[0]
     if n & (n - 1) or n > ck.n:
         raise ValueError(f"the inner-product argument needs a power-of-two length <= {ck.n}, "
@@ -70,23 +78,29 @@ def ipa_prove(field: Field, ck: CommitmentKey, a: torch.Tensor, b: torch.Tensor,
     while nj > 1:
         half = nj // 2
         a_lo, a_hi, b_lo, b_hi = a[:half], a[half:], b[:half], b[half:]
-        c = _sum_rows(f, f.mul(torch.stack([a_lo, a_hi]), torch.stack([b_hi, b_lo])), dim=1)
-        zero = torch.zeros_like(a_lo)
-        pattern = torch.stack([torch.cat([zero, a_lo]), torch.cat([a_hi, zero])])  # (2, nj, 8)
-        sigma = f.mul(w.reshape(1, n // nj, nj, NLIMBS), pattern[:, None]).reshape(2, n, NLIMBS)
-        pts = ck.with_h.commit_batch(_with_h(ck, n, sigma, c))
-        l_aff, r_aff = ck.curve.to_affine_ints(pts)
-        absorb_point_ints(tr, l_aff)
-        absorb_point_ints(tr, r_aff)
-        ls.append(Point(*(v[0] for v in pts)))
-        rs.append(Point(*(v[1] for v in pts)))
-        x = squeeze_challenge_128(tr)
-        xs = f.encode([x, pow(x, -1, q)], a.device)  # x == 0 has probability 2^-128; let it raise
-        # a' = a_lo x + a_hi x^-1, b' = b_lo x^-1 + b_hi x, one batched product.
-        prod = f.mul(torch.stack([a_lo, a_hi, b_lo, b_hi]), xs[[0, 1, 1, 0]][:, None])
-        a, b = f.add(prod[0::2], prod[1::2]).unbind(0)
-        # w_k takes x where the top bit of k mod nj is set, else x^-1.
-        w = f.mul(w.reshape(n // nj, 2, half, NLIMBS), xs[[1, 0]][None, :, None]).reshape(n, NLIMBS)
+        with span("commit"):
+            c = _sum_rows(f, f.mul(torch.stack([a_lo, a_hi]), torch.stack([b_hi, b_lo])), dim=1)
+            zero = torch.zeros_like(a_lo)
+            pattern = torch.stack([torch.cat([zero, a_lo]), torch.cat([a_hi, zero])])  # (2, nj, 8)
+            sigma = f.mul(w.reshape(1, n // nj, nj, NLIMBS), pattern[:, None]).reshape(2, n, NLIMBS)
+            pts = ck.with_h.commit_batch(_with_h(ck, n, sigma, c))
+        with span("read"):
+            l_aff, r_aff = ck.curve.to_affine_ints(pts)
+        with span("transcript"):
+            absorb_point_ints(tr, l_aff)
+            absorb_point_ints(tr, r_aff)
+            ls.append(Point(*(v[0] for v in pts)))
+            rs.append(Point(*(v[1] for v in pts)))
+            x = squeeze_challenge_128(tr)
+            # x == 0 has probability 2^-128; let it raise
+            xs = f.encode([x, pow(x, -1, q)], a.device)
+        with span("fold"):
+            # a' = a_lo x + a_hi x^-1, b' = b_lo x^-1 + b_hi x, one batched product.
+            prod = f.mul(torch.stack([a_lo, a_hi, b_lo, b_hi]), xs[[0, 1, 1, 0]][:, None])
+            a, b = f.add(prod[0::2], prod[1::2]).unbind(0)
+            # w_k takes x where the top bit of k mod nj is set, else x^-1.
+            w = f.mul(w.reshape(n // nj, 2, half, NLIMBS),
+                      xs[[1, 0]][None, :, None]).reshape(n, NLIMBS)
         nj = half
     return IPAProof(tuple(ls), tuple(rs), a[0])
 

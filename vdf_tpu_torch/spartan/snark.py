@@ -137,11 +137,12 @@ def spartan_prove(ctx: SpartanCtx, U, W, tr: IntTranscript,
     X and u ints) opens to W = RelaxedWitness(w, e), Montgomery tensors on
     ``ctx.device``.  ``timer`` gets a span for each part, named
     "<curve>/outer sumcheck", "<curve>/gamma-matvec", "<curve>/inner
-    sumcheck" and "<curve>/two IPAs"; the rest (Az, Bz, Cz, the eq tables,
-    vW, the reads) is in none of them."""
+    sumcheck" and "<curve>/two IPAs" (inside it, ``ipa_prove``'s
+    "<curve>/ipa.<part>" spans of each round); the rest (Az, Bz, Cz, the eq
+    tables, vW, the reads) is in none of them.  None: no spans."""
     f, shape, dev = ctx.field, ctx.dev_shape, ctx.device
     s = shape.shape
-    timer = timer or PhaseTimer()
+    timer = timer or PhaseTimer(enabled=False)
     span = lambda part: timer.phase(f"{ctx.curve_name}/{part}")  # noqa: E731
     absorb_instance_ints(tr, U)
 
@@ -177,8 +178,8 @@ def spartan_prove(ctx: SpartanCtx, U, W, tr: IntTranscript,
     tr.absorb(f.decode(vW))
 
     with span("two IPAs"):
-        ipa_e = ipa_prove(f, ctx.ck, e_pad, eq_rx, tr)
-        ipa_w = ipa_prove(f, ctx.ck, w_pad, b_w, tr)
+        ipa_e = ipa_prove(f, ctx.ck, e_pad, eq_rx, tr, timer)
+        ipa_w = ipa_prove(f, ctx.ck, w_pad, b_w, tr, timer)
     return SpartanProof(tuple(msgs1), vA, vB, vC, vE, tuple(msgs2), vW, ipa_e, ipa_w)
 
 
