@@ -2,7 +2,8 @@
 and r1cs.bits) against the JAX package's on the CPU: the params digests
 frozen in tests/test_golden.py, both shapes and witnesses at t = 2, the host
 <-> circuit transcript parity of tests/test_augmented.py, the bit gadgets,
-and the native witness emitters against the Python paths.  Equality is
+the native witness emitters against the Python paths, and the value-only
+pass's blocks against the check=True pass at t = 2 and t = 100.  Equality is
 exact everywhere (host ints, COO triples).
 """
 
@@ -23,7 +24,7 @@ from vdf_tpu.r1cs.cs import ShapeCS as JaxShapeCS
 from vdf_tpu.r1cs.gadgets import Num as JaxNum
 from vdf_tpu.r1cs.witness import WitnessCS as JaxWitnessCS
 from vdf_tpu_torch.curves import get_int_curve, hash_to_curve_ints
-from vdf_tpu_torch.fields import get_int_field
+from vdf_tpu_torch.fields import get_field, get_int_field
 from vdf_tpu_torch.native import ec_fold_witness_native, poseidon_permute_native
 from vdf_tpu_torch.nova import augmented, ivc
 from vdf_tpu_torch.nova.augmented import CHALLENGE_BITS, HASH_BITS, _truncated_squeeze
@@ -348,3 +349,170 @@ def test_witness_cs_check_over_int_field():
     assert cs.failed == ["mul/broken"]
     assert cs.eval_lc(LinearCombination()) == 0 and isinstance(cs.eval_lc(LinearCombination()),
                                                                int)
+
+
+# -- the value-only pass's blocks (WitnessCS.blocks: the native emitters'
+#    buffers and the bit decompositions as (k, 4) uint64 blocks)
+
+
+def _chain_inputs(pkg, aug, t: int, side: str, step: int):
+    """AugmentedInputs of one side in one package: the base step (0), or a
+    later step (1, 2, 3) with a nontrivial running instance; step 2 folds an
+    identity comm_T, step 3 an identity comm_T into a running instance whose
+    comm_E is the identity."""
+    primary = side == "primary"
+    field_name, curve_name = SIDES[0] if primary else SIDES[1]
+    p = get_int_field(field_name).p
+    other = get_int_field("Fp" if primary else "Fq").p
+    rng = XorShiftRng(_seed(40 + step + (0 if primary else 8)))
+    d = field_random(rng, 1 << HASH_BITS)
+    z0 = [field_random(rng, p) for _ in range(3 if primary else 1)]
+    if step == 0:
+        u = (None if primary else
+             pkg.HostInstance(_points(curve_name, 1, 50)[0], [7, (1 << HASH_BITS) - 9]))
+        return aug.AugmentedInputs(d, 0, z0, z0, pkg.HostRelaxedInstance.default(), u, None)
+    pts = _points(curve_name, 4, 50 + step)
+    comm_e = None if step == 3 else pts[1]
+    comm_t = None if step >= 2 else pts[3]
+    U = pkg.HostRelaxedInstance(pts[0], comm_e, [field_random(rng, other),
+                                                 field_random(rng, other)],
+                                field_random(rng, 1 << (128 + step)))
+    u = pkg.HostInstance(pts[2], [field_random(rng, 1 << HASH_BITS),
+                                  field_random(rng, 1 << HASH_BITS)])
+    z_i = [field_random(rng, p) for _ in z0]
+    return aug.AugmentedInputs(d, step, z0, z_i, U, u, comm_t)
+
+
+@pytest.mark.parametrize("t", [2, 100])
+@pytest.mark.parametrize("side", ["primary", "secondary"])
+@pytest.mark.parametrize("step", [0, 1, 2, 3])
+def test_block_witness_equals_check_pass(t, side, step):
+    """The value-only pass's aux_u64() is, byte for byte, encode_canonical of
+    the check=True pass's ints (which takes no block path), and its limbs
+    those bytes; at t = 2 the JAX package's witness gives the same bytes."""
+    k = 0 if side == "primary" else 1
+    circ = augmented.make_circuits(t)[k]
+    inp = _chain_inputs(ivc, augmented, t, side, step)
+    fast, z_fast = circ.witness(inp)
+    slow, z_slow = circ.witness(inp, check=True)
+    assert fast.blocks and not slow.blocks
+    f = fast.field
+    words = fast.aux_u64()
+    want = get_field(circ.field_name).encode_canonical(slow.aux, "cpu")
+    assert words.shape == (slow.num_aux, 4) == (fast.num_aux, 4)
+    assert words.tobytes() == want.numpy().tobytes()
+    assert torch.equal(get_field(circ.field_name).encode_canonical_u64(words, "cpu"), want)
+    assert fast.aux == slow.aux and fast.inputs == slow.inputs and z_fast == z_slow
+    assert all(0 <= v < f.p for v in fast.aux)
+    # made-up inputs: only the input hash's check may fail
+    assert all("h_in" in name for name in slow.failed)
+    if t == 2:
+        ref = jax_augmented.make_circuits(t)[k]
+        cs_ref, z_ref = ref.witness(_chain_inputs(jax_ivc, jax_augmented, t, side, step))
+        assert words.tobytes() == b"".join(int(v).to_bytes(32, "little") for v in cs_ref.aux)
+        assert fast.inputs == cs_ref.inputs and z_fast == z_ref
+
+
+def test_block_counter():
+    """A value-only synthesis counts most of its elements as blocks; a
+    check=True one counts none."""
+    from vdf_tpu_torch.r1cs import witness
+
+    circ = augmented.make_circuits(100)[0]
+    inp = _chain_inputs(ivc, augmented, 100, "primary", 1)
+    before = dict(witness.ELEMENTS)
+    cs, _ = circ.witness(inp)
+    mid = dict(witness.ELEMENTS)
+    blocks, singles = mid["block"] - before["block"], mid["single"] - before["single"]
+    assert blocks + singles == cs.num_aux
+    assert blocks / cs.num_aux >= 0.9
+    slow, _ = circ.witness(inp, check=True)
+    after = dict(witness.ELEMENTS)
+    assert after["block"] == mid["block"]
+    assert after["single"] - mid["single"] == slow.num_aux
+
+
+def _decompositions(cs, value: int, modulus: int):
+    """Every bit decomposition of the value-only pass on one value, in one
+    constraint system; -> the bits each returned."""
+    from vdf_tpu_torch.nova.gadgets.bignat import BigNat
+
+    x = Num(LinearCombination.of(cs.alloc("x", value=value), 1), value)
+    outs = [bits.num_to_bits_le(cs, x, 255, "all"),
+            bits.num_to_bits_le_strict(cs, x, "st"),
+            BigNat.alloc(cs, "bn", value).limbs,
+            bits.alloc_bits_le(cs, value, 128, "k")]
+    if value < 1 << 250:
+        outs.append(bits.num_to_bits_le(cs, x, 250, "x"))
+    return outs
+
+
+@pytest.mark.parametrize("field_name", ["Fp", "Fq"])
+@pytest.mark.parametrize("value", [0, 1, "p-1", "2^250-1", "random"])
+def test_bit_blocks_equal_per_element_bits(field_name, value):
+    """num_to_bits_le, num_to_bits_le_strict (with its "equal so far" chain),
+    BigNat.alloc and alloc_bits_le as one block each: the same aux values,
+    bit values and variables as one AllocatedBit at a time."""
+    f = get_int_field(field_name)
+    value = {"p-1": f.p - 1, "2^250-1": (1 << 250) - 1,
+             "random": field_random(XorShiftRng(_seed(60)), f.p)}.get(value, value)
+    fast = WitnessCS(f, inputs=[])
+    slow = WitnessCS(f, inputs=[], check=True)
+    got = _decompositions(fast, value, f.p)
+    want = _decompositions(slow, value, f.p)
+    assert fast.num_aux == slow.num_aux and fast.aux == slow.aux
+    assert fast.aux_u64().tobytes() == get_field(field_name).encode_canonical(
+        slow.aux, "cpu").numpy().tobytes()
+    for g, w in zip(got, want):
+        if isinstance(g[0], Num):  # BigNat limbs
+            assert [n.value for n in g] == [n.value for n in w]
+            continue
+        assert isinstance(g, bits.BitBlock) and len(g) == len(w)
+        assert [b.value for b in g] == [b.value for b in w]
+        assert [b.var for b in g] == [b.var for b in w]
+        assert bits.bits_value(g) == bits.bits_value(w)
+        assert bits.bits_value(g, 85) == bits.bits_value(w, 85)
+        assert [b.value for b in g[3:90]] == [b.value for b in w[3:90]]
+        assert list(g.msb_first()) == [b.value for b in reversed(w)]
+    assert not slow.failed
+
+
+def test_alloc_block_needs_a_value_only_pass():
+    from vdf_tpu_torch.errors import SynthesisError
+
+    cs = WitnessCS(get_int_field("Fq"), inputs=[], check=True)
+    with pytest.raises(SynthesisError):
+        cs.alloc_block(np.zeros((2, 4), dtype=np.uint64))
+
+
+def test_block_counter_under_threads():
+    """Syntheses on several threads (prove_interleaved's case) lose no count:
+    16 threads on a short switch interval, each its own WitnessCS."""
+    import sys
+    import threading
+
+    from vdf_tpu_torch.r1cs import witness
+
+    f = get_int_field("Fq")
+
+    def work():
+        cs = WitnessCS(f, inputs=[])
+        for k in range(400):
+            cs.alloc("x", value=k)
+            if k % 50 == 0:
+                cs.alloc_block(np.zeros((3, 4), dtype=np.uint64))
+
+    before = dict(witness.ELEMENTS)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert witness.ELEMENTS["single"] - before["single"] == 16 * 400
+    assert witness.ELEMENTS["block"] - before["block"] == 16 * 8 * 3

@@ -10,7 +10,8 @@ two keys' derivation is most of this file's time):
     package's loader reading the other's file;
   * tests/test_pipeline.py's cases on the port (statements of 2-3 steps,
     stage E with device="cpu"), each statement's proof field by field equal
-    to a lone RecursiveIVC's, and errors of either stage or of a chain's
+    to a lone RecursiveIVC's, two interleaved chains' proofs byte-equal to
+    the same chains proved in turn, and errors of either stage or of a chain's
     thread reaching the caller with ``partial_proofs``;
   * no fallback to the CPU: with no card the device entry points raise;
   * the launch counters and the kernel build under 8 threads at once.
@@ -320,6 +321,28 @@ def test_interleaved_chains_match_sequential(pp):
         for _ in range(num_steps - 1):
             solo.prove_step()
         _fields_equal(proof, solo.proof())
+
+
+def test_interleaved_pair_bytes_equal_sequential(pp):
+    """Two chains on two threads, each synthesis keeping its own blocks: both
+    proofs serialize to the bytes of the same chains proved one after the
+    other, and the syntheses arrived mostly as blocks."""
+    from vdf_tpu_torch.r1cs import witness
+
+    rng = XorShiftRng(TEST_SEED[::-1])
+    p = get_int_field("Fq").p
+    num_steps = 3
+    z0s = [_forward(field_random(rng, p), 0, 1, T * num_steps) for _ in range(2)]
+    before = dict(witness.ELEMENTS)
+    proofs = prove_interleaved(pp, z0s, num_steps)
+    blocks = witness.ELEMENTS["block"] - before["block"]
+    singles = witness.ELEMENTS["single"] - before["single"]
+    assert blocks / (blocks + singles) >= 0.9
+    for z0, proof in zip(z0s, proofs):
+        solo = RecursiveIVC(pp, z0)
+        for _ in range(num_steps - 1):
+            solo.prove_step()
+        assert serialize_ivc_proof(pp, proof) == serialize_ivc_proof(pp, solo.proof())
 
 
 def test_pipeline_rejects_tampered_start(pp):

@@ -395,6 +395,13 @@ class Field:
         arr = np.frombuffer(buf, dtype="<u4").reshape(-1, NLIMBS)
         return torch.from_numpy(arr.view(np.int32).copy()).to(resolve_device(device))
 
+    def encode_canonical_u64(self, words: np.ndarray, device=None) -> torch.Tensor:
+        """``(n, 4)`` little-endian uint64 words of canonical values ->
+        ``encode_canonical``'s ``(n, 8)`` int32 limbs on ``device``: a view
+        of the same bytes and one host-to-device copy."""
+        arr = np.ascontiguousarray(words, dtype="<u8").view(np.int32).reshape(-1, NLIMBS)
+        return torch.from_numpy(arr).to(resolve_device(device))
+
     def decode(self, a: torch.Tensor):
         """Montgomery limbs -> canonical Python int(s): an int for (8,),
         a list for (..., 8) (flattened over the leading axes)."""

@@ -11,7 +11,9 @@ It is never on the device engine's path.  It serves two roles:
     emitters of the host control plane, ``poseidon_permute_native`` (the
     transcripts and the in-circuit sponge's S-box values) and
     ``ec_fold_witness_native`` (the in-circuit instance fold's point
-    values).  ``minroot_eval_native``, ``minroot_inverse_native`` and
+    values), whose ``*_words`` forms hand the values over as the
+    ``(k, 4)`` uint64 block the value-only witness keeps.
+    ``minroot_eval_native``, ``minroot_inverse_native`` and
     ``fold_points_native`` are carried for the modules still to port.
 
 The library builds at first use with g++ into
@@ -107,7 +109,8 @@ def _u64_buffer(values) -> np.ndarray:
                          dtype=np.uint64).copy()
 
 
-def _ints_of(buf: np.ndarray) -> list[int]:
+def ints_of_u64(buf: np.ndarray) -> list[int]:
+    """Canonical uint64 words, 4 a value (flat or ``(k, 4)``) -> k ints."""
     raw = buf.tobytes()
     return [int.from_bytes(raw[k : k + 32], "little") for k in range(0, len(raw), 32)]
 
@@ -176,7 +179,7 @@ def msm_native_affine(curve_name: str, points: list[tuple[int, int]], scalars: l
 def _minroot_native(fn_name: str, field_name: str, x: int, y: int, i: int, t: int):
     st = _u64_buffer((x, y, i))
     getattr(load(), fn_name)(1 if field_name == "Fq" else 0, _ptr(st), t)
-    return tuple(_ints_of(st))
+    return tuple(ints_of_u64(st))
 
 
 def minroot_eval_native(field_name: str, x: int, y: int, i: int, t: int):
@@ -198,8 +201,19 @@ def _poseidon_packed(field_name: str, width: int):
     r_p = partial_rounds(width)
     half = FULL_ROUNDS // 2
     n_sbox = half * width + r_p + (FULL_ROUNDS - half) * width
-    return (_u64_buffer([c for row in rc for c in row]),
-            _u64_buffer([c for row in mds for c in row]), half, r_p, FULL_ROUNDS, n_sbox)
+    rc_buf = _u64_buffer([c for row in rc for c in row])
+    mds_buf = _u64_buffer([c for row in mds for c in row])
+    # the buffers stay referenced beside their pointers
+    return rc_buf, mds_buf, _ptr(rc_buf), _ptr(mds_buf), half, r_p, FULL_ROUNDS, n_sbox
+
+
+def _poseidon(field_name: str, state: list[int], tri: np.ndarray | None) -> list[int]:
+    width = len(state)
+    _, _, rc, mds, half, r_p, full, _ = _poseidon_packed(field_name, width)
+    st = _u64_buffer(state)
+    load().poseidon_witness_native(1 if field_name == "Fq" else 0, width, half, r_p, full,
+                                   rc, mds, _ptr(st), _ptr(tri) if tri is not None else None)
+    return ints_of_u64(st)
 
 
 def poseidon_permute_native(field_name: str, state: list[int], emit_triples: bool = False):
@@ -208,15 +222,19 @@ def poseidon_permute_native(field_name: str, state: list[int], emit_triples: boo
     every S-box's (x^2, x^4, x^5) in the in-circuit sponge's allocation
     order (nova/gadgets/sponge.py): the witness values of the augmented
     circuit's transcript gadgets."""
-    width = len(state)
-    rc, mds, half, r_p, full, n_sbox = _poseidon_packed(field_name, width)
-    st = _u64_buffer(state)
-    tri = np.zeros(n_sbox * 12, dtype=np.uint64) if emit_triples else None
-    load().poseidon_witness_native(1 if field_name == "Fq" else 0, width, half, r_p, full,
-                                   _ptr(rc), _ptr(mds), _ptr(st),
-                                   _ptr(tri) if tri is not None else None)
-    out = _ints_of(st)
-    return (out, _ints_of(tri)) if emit_triples else out
+    if not emit_triples:
+        return _poseidon(field_name, state, None)
+    out, tri = poseidon_permute_native_words(field_name, state)
+    return out, ints_of_u64(tri)
+
+
+def poseidon_permute_native_words(field_name: str, state: list[int]):
+    """``poseidon_permute_native(emit_triples=True)`` with the S-box values
+    left as a ``(3 n_sbox, 4)`` uint64 array of canonical words: -> (the
+    output state as ints, that array)."""
+    n_sbox = _poseidon_packed(field_name, len(state))[-1]
+    tri = np.zeros((3 * n_sbox, 4), dtype=np.uint64)
+    return _poseidon(field_name, state, tri), tri
 
 
 def ec_fold_witness_native(field_name: str, base_proj: tuple[int, int, int],
@@ -226,13 +244,20 @@ def ec_fold_witness_native(field_name: str, base_proj: tuple[int, int, int],
     complete projective formulas), in the gadget's allocation order: a flat
     list of n_bits 23 + 12 + 4 canonical ints, the last 4 being (inf, zinv,
     x, y) of the affine result."""
+    return ints_of_u64(ec_fold_witness_native_words(field_name, base_proj, pt_proj, r_bits_msb))
+
+
+def ec_fold_witness_native_words(field_name: str, base_proj: tuple[int, int, int],
+                                 pt_proj: tuple[int, int, int], r_bits_msb) -> np.ndarray:
+    """``ec_fold_witness_native`` as a ``(n_bits 23 + 16, 4)`` uint64 array
+    of canonical words; ``r_bits_msb`` a list or an array of 0/1."""
     n_bits = len(r_bits_msb)
-    out = np.zeros((n_bits * 23 + 12 + 4) * 4, dtype=np.uint64)
+    out = np.zeros((n_bits * 23 + 12 + 4, 4), dtype=np.uint64)
     load().ec_fold_witness_native(1 if field_name == "Fq" else 0, _ptr(_u64_buffer(base_proj)),
                                   _ptr(_u64_buffer(pt_proj)),
-                                  _ptr(np.asarray(r_bits_msb, dtype=np.uint64)), n_bits,
-                                  _ptr(out))
-    return _ints_of(out)
+                                  _ptr(np.ascontiguousarray(r_bits_msb, dtype=np.uint64)),
+                                  n_bits, _ptr(out))
+    return out
 
 
 def fold_points_native(curve_name: str, pts_p: list[tuple[int, int]],
@@ -249,5 +274,5 @@ def fold_points_native(curve_name: str, pts_p: list[tuple[int, int]],
                               _ptr(_u64_buffer([b])), n, _ptr(out), _ptr(flags))
     if flags.any():
         raise ValueError("fold_points_native produced an identity point")
-    vals = _ints_of(out)
+    vals = ints_of_u64(out)
     return [(vals[2 * i], vals[2 * i + 1]) for i in range(n)]

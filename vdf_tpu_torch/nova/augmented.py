@@ -39,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 
 from ..fields.int_field import get_int_field
-from ..r1cs.bits import AllocatedBit, bits_to_lc, num_select, num_to_bits_le_strict
+from ..r1cs.bits import AllocatedBit, bits_to_lc, bits_value, num_select, num_to_bits_le_strict
 from ..r1cs.cs import ONE, LinearCombination, ShapeCS
 from ..r1cs.gadgets import AllocatedNum, Num, _is_witness
 from ..utils.profiling import PhaseTimer
@@ -80,9 +80,7 @@ def _truncated_squeeze(cs, tr: TranscriptGadget, n_bits: int, name: str):
     h = tr.squeeze()
     bits = num_to_bits_le_strict(cs, h, f"{name}_bits")
     kept = bits[:n_bits]
-    value = None
-    if _is_witness(cs):
-        value = sum(b.value << k for k, b in enumerate(kept))
+    value = bits_value(kept) if _is_witness(cs) else None
     return Num(bits_to_lc(kept), value), kept
 
 
@@ -229,8 +227,9 @@ class AugmentedCircuit:
 
     def witness(self, inp: AugmentedInputs, check: bool = False,
                 timer: PhaseTimer | None = None):
-        """Returns (cs, z_next ints).  cs.aux is the witness (host ints);
-        cs.inputs the two public IO values.  ``timer`` gets the synthesis's
+        """Returns (cs, z_next ints).  cs.aux is the witness (host ints),
+        cs.aux_u64() the same as canonical uint64 words; cs.inputs the two
+        public IO values.  ``timer`` gets the synthesis's
         spans (``synthesize``)."""
         from ..r1cs.cs import lc_sink
         from ..r1cs.witness import WitnessCS

@@ -22,7 +22,7 @@ package, which pulls in jax), its imports re-pointed at the port.
 
 from __future__ import annotations
 
-from ...r1cs.bits import AllocatedBit, bits_to_lc, bits_value, num_to_bits_le
+from ...r1cs.bits import AllocatedBit, alloc_bits_le, bits_to_lc, bits_value, num_to_bits_le
 from ...r1cs.cs import ONE, LinearCombination
 from ...r1cs.gadgets import Num, _is_witness
 
@@ -53,11 +53,7 @@ class BigNat:
     @classmethod
     def alloc(cls, cs, name: str, value: int | None = None) -> "BigNat":
         """Allocate from 255 fresh range-checked bits."""
-        bits = []
-        for i in range(N_LIMBS * LIMB_BITS):
-            v = ((int(value) >> i) & 1) if _is_witness(cs) else None
-            bits.append(AllocatedBit.alloc(cs, f"{name}_b{i}", v))
-        return cls(_bits_limbs(cs, bits))
+        return cls(_bits_limbs(cs, alloc_bits_le(cs, value, N_LIMBS * LIMB_BITS, f"{name}_b")))
 
     @classmethod
     def from_bits(cls, cs, bits: list[AllocatedBit]) -> "BigNat":
@@ -166,10 +162,7 @@ def fold_mod(
         out_v = k_v = None
 
     out = BigNat.alloc(cs, f"{name}_out", out_v)
-    k_bits = []
-    for i in range(126):
-        v = ((k_v >> i) & 1) if _is_witness(cs) else None
-        k_bits.append(AllocatedBit.alloc(cs, f"{name}_k{i}", v))
+    k_bits = alloc_bits_le(cs, k_v, 126, f"{name}_k")
     k = Num(bits_to_lc(k_bits), bits_value(k_bits) if _is_witness(cs) else None)
 
     pl = int_to_limbs(p_other)
@@ -186,10 +179,7 @@ def fold_mod(
     widths = [128, 130, 131]  # carry range-check widths
 
     def alloc_carry(i: int, value: int | None) -> Num:
-        bits = []
-        for j in range(widths[i]):
-            v = ((value >> j) & 1) if value is not None else None
-            bits.append(AllocatedBit.alloc(cs, f"{name}_g{i}b{j}", v))
+        bits = alloc_bits_le(cs, value, widths[i], f"{name}_g{i}b")
         return Num(bits_to_lc(bits), bits_value(bits) if _is_witness(cs) else None)
 
     if _is_witness(cs):

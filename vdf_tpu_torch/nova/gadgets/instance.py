@@ -30,11 +30,13 @@ import dataclasses
 
 from ...r1cs.bits import (
     AllocatedBit,
+    BitBlock,
     bits_to_lc,
     bits_value,
     num_select,
     num_to_bits_le,
 )
+from ...native import ec_fold_witness_native_words, ints_of_u64
 from ...r1cs.gadgets import AllocatedNum, Num, _is_witness
 from .bignat import BigNat, _bits_limbs, fold_mod, int_to_limbs
 from .ec import AllocatedPoint, ProjPoint, const_num
@@ -48,15 +50,11 @@ def _alloc_num(cs, name: str, value=None) -> AllocatedNum:
 
 
 def _native_ec():
-    """ec_fold_witness_native when the native build is available (the
+    """ec_fold_witness_native_words when the native build is available (the
     Poseidon self-check in int_poseidon gates the same library)."""
     from ...poseidon.int_poseidon import _native_permute
 
-    if _native_permute() is None:
-        return None
-    from ...native import ec_fold_witness_native
-
-    return ec_fold_witness_native
+    return ec_fold_witness_native_words if _native_permute() is not None else None
 
 
 @dataclasses.dataclass
@@ -255,14 +253,9 @@ class AllocatedRelaxedInstance:
         # Native witness fast path: the C++ emitter produces every
         # allocated value of scalar_mul + add + to_affine in gadget
         # order (native/pasta.cpp::ec_fold_witness_native), so the
-        # value-only pass is a flat allocation loop in place of the
-        # double-and-add chains in Python ints.
-        values_only = (
-            _is_witness(cs)
-            and not getattr(cs, "check", False)
-            and isinstance(self.u.value, int)
-        )
-        native_ec = _native_ec() if values_only else None
+        # value-only pass over host ints allocates it as one block in
+        # place of the double-and-add chains in Python ints.
+        native_ec = _native_ec() if getattr(cs, "blocks", False) else None
 
         def scaled_add(base: AllocatedPoint, pt: AllocatedPoint, nm: str) -> PointParts:
             if native_ec is not None:
@@ -276,13 +269,15 @@ class AllocatedRelaxedInstance:
                         (1 - int(ap.inf.value)) % p_mod,
                     )
 
-                bits_msb = [b.value for b in reversed(r_bits)]
-                vals = native_ec(
+                if isinstance(r_bits, BitBlock):
+                    bits_msb = r_bits.msb_first()
+                else:
+                    bits_msb = [b.value for b in reversed(r_bits)]
+                words = native_ec(
                     cs.field.params.name, proj(base), proj(pt), bits_msb
                 )
-                for v in vals:
-                    cs.alloc("ec", value=v)
-                inf_v, _, x_v, y_v = vals[-4:]
+                cs.alloc_block(words)
+                inf_v, _, x_v, y_v = ints_of_u64(words[-4:])
                 from ...r1cs.cs import NULL_LC
 
                 return PointParts(

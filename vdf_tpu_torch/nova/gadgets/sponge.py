@@ -18,7 +18,8 @@ package, which pulls in jax), its imports re-pointed at the port.
 
 from __future__ import annotations
 
-from ...poseidon.int_poseidon import _constants
+from ...native import poseidon_permute_native_words
+from ...poseidon.int_poseidon import _constants, _native_permute
 from ...poseidon.params import FULL_ROUNDS, partial_rounds
 from ...r1cs.cs import ONE, LinearCombination
 from ...r1cs.gadgets import AllocatedNum, Num, _is_witness
@@ -51,35 +52,15 @@ def permute_gadget(cs, field_name: str, state: list, name: str = "pos") -> list:
 
     # Native witness fast path: the C++ permutation emits every S-box
     # intermediate in this gadget's allocation order, so the value-only
-    # pass just allocates from the returned buffer in place of the
-    # Python-int rounds.  Requires host
-    # ints (the augmented circuit's control plane) and the native build.
-    if values_only and isinstance(state[0].value, int):
-        from ...poseidon.int_poseidon import _native_permute
-
-        native = _native_permute()
-        if native is not None:
-            out_state, triples = native(
-                field_name, [int(el.value) for el in state], emit_triples=True
-            )
-            k = 0
-
-            def alloc3():
-                nonlocal k
-                for _ in range(3):
-                    cs.alloc("sb", value=triples[k])
-                    k += 1
-
-            for r in range(half):
-                for _ in range(width):
-                    alloc3()
-            for r in range(r_p):
-                alloc3()
-            for r in range(FULL_ROUNDS - half):
-                for _ in range(width):
-                    alloc3()
-            assert k == len(triples)
-            return [Num(_empty, v) for v in out_state]
+    # pass allocates the returned buffer as one block in place of the
+    # Python-int rounds.  Requires a pass over host ints (the augmented
+    # circuit's control plane, ``cs.blocks``) and the native build.
+    if getattr(cs, "blocks", False) and _native_permute() is not None:
+        out_state, triples = poseidon_permute_native_words(
+            field_name, [int(el.value) for el in state]
+        )
+        cs.alloc_block(triples)
+        return [Num(_empty, v) for v in out_state]
 
     def add_rc(s: list, r: int) -> list:
         out = []

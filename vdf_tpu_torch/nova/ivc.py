@@ -189,10 +189,10 @@ class HostPlane:
         self.gens = derive_generators(curve_name, n)[:n]
         self._gens_packed = None  # packed u64 buffer, built at first commit
 
-    def _msm(self, scalars: list[int]) -> tuple | None:
+    def _msm(self, sc_u64: np.ndarray) -> tuple | None:
         if self._gens_packed is None:
             self._gens_packed = pack_points_u64(self.gens)
-        out = msm_native_packed(self.curve_name, self._gens_packed, pack_scalars_u64(scalars))
+        out = msm_native_packed(self.curve_name, self._gens_packed, sc_u64)
         if out is None:
             return None
         x, y, z = out  # Jacobian
@@ -201,7 +201,11 @@ class HostPlane:
         return (x * zi * zi % mod, y * zi * zi % mod * zi % mod)
 
     def commit(self, w: list[int]) -> tuple | None:
-        return self._msm([int(v) for v in w])
+        return self._msm(pack_scalars_u64(w))
+
+    def commit_words(self, words: np.ndarray) -> tuple | None:
+        """``commit`` of a witness given as ``(n, 4)`` canonical uint64 words."""
+        return self._msm(np.ascontiguousarray(words, dtype=np.uint64).reshape(-1))
 
     def _matvecs(self, z: list[int]) -> list[list[int]]:
         p = self.f.p
@@ -332,13 +336,15 @@ class Side:
         v = self.field.encode([*U.X, u], self.device)
         return v[:-1], v[-1]
 
-    def commit_ints(self, w_ints: list[int]):
-        """-> (witness handle, affine commitment).  The handle is a
-        Montgomery tensor on the device engine, an int list on the native."""
+    def commit_witness(self, cs):
+        """The witness of a synthesis (its WitnessCS) -> (witness handle,
+        affine commitment).  The handle is a Montgomery tensor on the device
+        engine, an int list on the native, whose Pippenger takes the
+        canonical words as they are."""
+        words = cs.aux_u64()
         if not self.use_device:
-            w = [int(v) for v in w_ints]
-            return w, self.host_plane.commit(w)
-        w = self._lift(self.field.encode_canonical(w_ints, self.device))
+            return cs.aux, self.host_plane.commit_words(words)
+        w = self._lift(self.field.encode_canonical_u64(words, self.device))
         return w, self.commit_w(w)
 
     def commit_w(self, w: torch.Tensor) -> tuple | None:
@@ -748,19 +754,19 @@ class RecursiveIVC:
             cs, z_next = side.circuit.witness(inp, check=self.debug, timer=self.timer)
         if self.debug and cs.failed:
             raise SynthesisError(f"unsatisfied: {cs.failed[:10]}")
-        if len(cs.aux) != side.shape.num_aux:
+        if cs.num_aux != side.shape.num_aux:
             raise SynthesisError(
-                f"witness/shape mismatch: {len(cs.aux)} vs {side.shape.num_aux}"
+                f"witness/shape mismatch: {cs.num_aux} vs {side.shape.num_aux}"
             )
         if defer_commit and side.use_device:
-            # Canonical limbs by bytes on the host; the fused fold lifts
-            # them on the device (K3's domain mode) instead of ~15k host
-            # bigint mulmods.
+            # The canonical words as the synthesis left them, one copy to
+            # the device; the fused fold lifts them there (K3's domain
+            # mode) instead of ~15k host bigint mulmods.
             with self.timer.phase(f"synth.encode/{name}"):
-                w = CanonicalWitness(side.field.encode_canonical(cs.aux, side.device))
+                w = CanonicalWitness(side.field.encode_canonical_u64(cs.aux_u64(), side.device))
             return HostInstance(None, [int(v) for v in cs.inputs]), w, z_next
         with self.timer.phase(f"commit/{side.curve_name}"):
-            w, comm = side.commit_ints(cs.aux)
+            w, comm = side.commit_witness(cs)
         return HostInstance(comm, [int(v) for v in cs.inputs]), w, z_next
 
     def prove_step(self) -> None:

@@ -11,10 +11,11 @@ JAX package's ``partial_reduce`` calls have no counterpart.
 from __future__ import annotations
 
 from .cs import ONE, LinearCombination, Variable
+from .witness import WitnessCS
 
 
 def _is_witness(cs) -> bool:
-    return hasattr(cs, "aux")
+    return isinstance(cs, WitnessCS)
 
 
 class AllocatedNum:

@@ -11,15 +11,34 @@ augmented circuit, nova/augmented.py).
 ``check=True`` additionally verifies each enforced constraint against
 the values (TestConstraintSystem behavior, reference
 src/nova/proof.rs:319-340).
+
+The value-only pass over host ints (``check=False`` over an ``IntField``,
+``cs.blocks``) keeps the aux vector as an ordered list of segments: runs of
+Python ints allocated one at a time, and ``(k, 4)`` little-endian uint64
+blocks of canonical values that a gadget allocates at once
+(``alloc_block``, ``alloc_bits``: the native emitters' buffers, bit
+decompositions).  ``aux_u64()`` gives the whole vector in that form for the
+device; ``aux`` builds the int list on demand.
 """
 
 from __future__ import annotations
 
+import threading
+
+import numpy as np
 import torch
 
 from ..errors import SynthesisError
 from ..fields import Field
+from ..fields.int_field import IntField
+from ..native import ints_of_u64, pack_scalars_u64
 from .cs import ONE, LinearCombination, Variable
+
+# How each witness element of every WitnessCS of the process arrived: in a
+# block (alloc_block, alloc_bits) or one at a time (alloc).  Never reset;
+# syntheses on several threads (prove_interleaved) count under the lock.
+ELEMENTS = {"block": 0, "single": 0}
+_COUNT_LOCK = threading.Lock()
 
 
 class WitnessCS:
@@ -27,11 +46,15 @@ class WitnessCS:
 
     def __init__(self, field: Field, inputs: list[torch.Tensor], check: bool = False):
         self.field = field
-        self.aux: list[torch.Tensor] = []
         self.inputs: list[torch.Tensor] = list(inputs)  # X values (no ONE)
         self.check = check
         self.failed: list[str] = []
         self._ns: list[str] = []
+        # gadgets may allocate in blocks: a value-only pass over host ints
+        self.blocks = not check and isinstance(field, IntField)
+        self.num_aux = 0
+        self._segs: list = []  # closed segments: int lists, (k, 4) uint64 blocks
+        self._run: list = []  # the open run of single values
 
     class _Namespace:
         def __init__(self, cs, name):
@@ -47,6 +70,28 @@ class WitnessCS:
     def namespace(self, name: str):
         return self._Namespace(self, name)
 
+    @property
+    def aux(self) -> list:
+        """The witness values in allocation order; with blocks, a list built
+        here (the blocks' values as ints)."""
+        if not self._segs:
+            return self._run
+        out: list = []
+        for seg in self._segs:
+            out.extend(seg if isinstance(seg, list) else ints_of_u64(seg))
+        out.extend(self._run)
+        return out
+
+    def aux_u64(self) -> np.ndarray:
+        """The whole aux vector of a pass over host ints as one ``(n, 4)``
+        little-endian uint64 array: the blocks as they are, the runs of
+        single ints encoded."""
+        parts = [seg if isinstance(seg, np.ndarray) else pack_scalars_u64(seg).reshape(-1, 4)
+                 for seg in [*self._segs, self._run] if len(seg)]
+        if not parts:
+            return np.zeros((0, 4), dtype=np.uint64)
+        return np.concatenate(parts)
+
     def value_of(self, var: Variable) -> torch.Tensor:
         if var.kind == "aux":
             return self.aux[var.index]
@@ -58,9 +103,35 @@ class WitnessCS:
     def alloc(self, name: str = "aux", value=None) -> Variable:
         if value is None:
             raise SynthesisError("witness pass requires a value")
-        v = Variable("aux", len(self.aux))
-        self.aux.append(value)
+        v = Variable("aux", self.num_aux)
+        self.num_aux += 1
+        self._run.append(value)
+        with _COUNT_LOCK:
+            ELEMENTS["single"] += 1
         return v
+
+    def alloc_block(self, words: np.ndarray) -> int:
+        """Allocate k values given as ``(k, 4)`` little-endian uint64
+        canonical words, in order; -> the aux index of the first.  Only where
+        ``blocks`` holds."""
+        if not self.blocks:
+            raise SynthesisError("alloc_block needs a value-only pass over host ints")
+        if self._run:
+            self._segs.append(self._run)
+            self._run = []
+        self._segs.append(words)
+        first = self.num_aux
+        self.num_aux += len(words)
+        with _COUNT_LOCK:
+            ELEMENTS["block"] += len(words)
+        return first
+
+    def alloc_bits(self, bits: np.ndarray) -> int:
+        """Allocate k bit values (0/1 in any integer dtype) as one block;
+        -> the aux index of the first."""
+        block = np.zeros((len(bits), 4), dtype=np.uint64)
+        block[:, 0] = bits
+        return self.alloc_block(block)
 
     def alloc_input(self, name: str = "input", value=None) -> Variable:
         """Append a public input computed *during* synthesis (used by the
