@@ -3,7 +3,7 @@ and r1cs.bits) against the JAX package's on the CPU: the params digests
 frozen in tests/test_golden.py, both shapes and witnesses at t = 2, the host
 <-> circuit transcript parity of tests/test_augmented.py, the bit gadgets,
 the native witness emitters against the Python paths, and the value-only
-pass's blocks against the check=True pass at t = 2 and t = 100.  Equality is
+pass's blocks against the check=True pass at t = 1, 2, 100 and 1000.  Equality is
 exact everywhere (host ints, COO triples).
 """
 
@@ -383,7 +383,7 @@ def _chain_inputs(pkg, aug, t: int, side: str, step: int):
     return aug.AugmentedInputs(d, step, z0, z_i, U, u, comm_t)
 
 
-@pytest.mark.parametrize("t", [2, 100])
+@pytest.mark.parametrize("t", [1, 2, 100, 1000])
 @pytest.mark.parametrize("side", ["primary", "secondary"])
 @pytest.mark.parametrize("step", [0, 1, 2, 3])
 def test_block_witness_equals_check_pass(t, side, step):

@@ -24,6 +24,10 @@ output, because every field element has a 5th root.  Here new_x is a
 ``Num`` (a linear combination ``y - i + 1`` of already-bound variables),
 so the x-chain is bound *by construction* with the same constraint
 count; the step output x is bound into an allocation at segment end.
+
+The value-only pass over host ints (``WitnessCS.blocks``) computes the
+rounds' values in one loop and allocates them as one block; the shape pass
+and the checking pass (``check=True``) run the gadgets above.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import dataclasses
 import torch
 
 from ..fields import Field
-from ..r1cs.cs import LinearCombination, ONE, ShapeCS
+from ..native import pack_scalars_u64
+from ..r1cs.cs import LinearCombination, ONE, ShapeCS, Variable
 from ..r1cs.gadgets import AllocatedNum, Num, _is_witness
 from ..r1cs.witness import WitnessCS
 
@@ -96,6 +101,8 @@ class InverseMinRootCircuit:
 
     def synthesize(self, cs, z: list[AllocatedNum]) -> list[AllocatedNum]:
         assert len(z) == 3
+        if getattr(cs, "blocks", False):
+            return self._synthesize_block(cs, z)
         x, y = Num.from_alloc(z[0]), z[1]
         i_num = Num.from_alloc(z[2])
 
@@ -119,6 +126,33 @@ class InverseMinRootCircuit:
             return out
 
         return [bind(x, "final_x"), y, bind(i_num, "final_i")]
+
+    def _synthesize_block(self, cs, z: list[AllocatedNum]) -> list[AllocatedNum]:
+        """The value-only pass over host ints (``cs.blocks``): the t rounds
+        on Python ints, allocated as one block in the per-element order
+        (tmp1, tmp2, new_y a round, then final_x, final_i).  Its enforces
+        would be no-ops, so none is made; the variables and values are the
+        per-element path's."""
+        q = cs.field.p
+        x, y, i = z[0].value, z[1].value, z[2].value
+        vals = []
+        for _ in range(self.t):
+            i = (i - 1) % q
+            new_x = (y - i) % q
+            tmp1 = x * x % q
+            tmp2 = tmp1 * tmp1 % q
+            y = (tmp2 * x - new_x) % q
+            vals += (tmp1, tmp2, y)
+            x = new_x
+        vals += (x, i)
+        first = cs.alloc_block(pack_scalars_u64(vals).reshape(-1, 4))
+        end = first + 3 * self.t
+
+        def aux(k: int, value) -> AllocatedNum:
+            return AllocatedNum(Variable("aux", k), value)
+
+        y_out = aux(end - 1, y) if self.t else z[1]
+        return [aux(end, x), y_out, aux(end + 1, i)]
 
     # -- host conveniences ---------------------------------------------
 
@@ -146,6 +180,4 @@ class InverseMinRootCircuit:
 
     @staticmethod
     def _input_vars():
-        from ..r1cs.cs import Variable
-
         return [Variable("input", k + 1) for k in range(3)]
