@@ -9,6 +9,11 @@
     kernels' plain versions): fold for fold equal to the native engine's,
     check_sat agreeing on good and tampered inputs, the witness domain and
     the product cache guarded.
+  * The instance fold (``Side.fold_instance``: pairs of points in one
+    batched native call, a pair with an identity operand on IntCurve)
+    against the IntCurve formula on both sides of the cycle, the counter
+    ``INSTANCE_FOLDS`` beside it, and a short device-engine fold chain
+    equal, instance for instance, to the same chain on IntCurve alone.
   * With no card the device engine raises; a ``slow`` test runs the
     full-shape device engine on the CPU against the native one (~30 min on one core).
   * The prover's spans: its default timer is off (a step never calls its
@@ -29,9 +34,11 @@ import torch
 
 from vdf_tpu.nova import ivc as jax_ivc
 from vdf_tpu_torch import interop
+from vdf_tpu_torch.curves.int_ops import get_int_curve
 from vdf_tpu_torch.errors import KernelError, NovaError
 from vdf_tpu_torch.fields import get_field, get_int_field
 from vdf_tpu_torch.nova import InverseMinRootCircuit
+from vdf_tpu_torch.nova import ivc as ivc_module
 from vdf_tpu_torch.nova.augmented import AugmentedInputs
 from vdf_tpu_torch.nova.ivc import (
     CanonicalWitness,
@@ -44,6 +51,7 @@ from vdf_tpu_torch.nova.ivc import (
     ivc_verify,
     state_hash,
 )
+from vdf_tpu_torch.nova.pedersen import derive_generators
 from vdf_tpu_torch.r1cs.cs import ShapeCS, Variable
 from vdf_tpu_torch.r1cs.gadgets import AllocatedNum
 from vdf_tpu_torch.r1cs.witness import WitnessCS
@@ -462,6 +470,101 @@ def test_stale_product_cache_raises(small_sides):
     # the right cache passes the same check
     dev.fold_cached(2, U1, W1, E1, HostInstance(None, x),
                     CanonicalWitness(f.encode_canonical(w, "cpu")), zp1, check_cache=True)
+
+
+# -- the instance fold: the native call against the IntCurve formula
+
+# (circuit field, commitment curve, transcript field) of each side
+SIDES = {"primary": ("Fq", "pallas", "Fp"), "secondary": ("Fp", "vesta", "Fq")}
+
+
+def int_fold_instance(side: Side, U, u, comm_t, r: int) -> HostRelaxedInstance:
+    """The oracle: both commitments base + r pt by double-and-add on IntCurve."""
+    c = get_int_curve(side.curve_name)
+    p = side.field.params.modulus
+
+    def scaled_add(base, pt):
+        return c.to_affine(c.add(c.from_affine(base), c.scalar_mul(c.from_affine(pt), r)))
+
+    return HostRelaxedInstance(scaled_add(U.comm_w, u.comm_w), scaled_add(U.comm_e, comm_t),
+                               [(U.X[k] + r * u.X[k]) % p for k in range(2)], U.u + r)
+
+
+def _neg_scaled(curve: str, pt, r: int):
+    c = get_int_curve(curve)
+    return c.to_affine(c.neg(c.scalar_mul(c.from_affine(pt), r)))
+
+
+def _counted():
+    return dict(ivc_module.INSTANCE_FOLDS)
+
+
+def _increments(before: dict) -> tuple[int, int]:
+    after = _counted()
+    return after["native"] - before["native"], after["int"] - before["int"]
+
+
+# case -> (U.comm_w, U.comm_e, u.comm_w, comm_t) from four points a, b, q, t
+# and r, and the (native, int) pairs it counts
+FOLD_CASES = {
+    "points": (lambda cv, a, b, q, t, r: (a, b, q, t), (2, 0)),
+    "base_none": (lambda cv, a, b, q, t, r: (a, None, q, t), (1, 1)),
+    "point_none": (lambda cv, a, b, q, t, r: (a, b, q, None), (1, 1)),
+    "both_none": (lambda cv, a, b, q, t, r: (a, None, q, None), (1, 1)),
+    "default_accumulator": (lambda cv, a, b, q, t, r: (None, None, q, t), (0, 2)),
+    "identity_result": (lambda cv, a, b, q, t, r: (_neg_scaled(cv, q, r), b, q, t), (2, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+@pytest.mark.parametrize("side_name", list(SIDES))
+def test_fold_instance_matches_int_curve(side_name, case):
+    """Pairs of points fold in the native call, a pair with an identity
+    operand on IntCurve; a result at the identity (base = -(r Q)) comes back
+    None.  The whole instance and the counter's increments are checked."""
+    field_name, curve, tr_field = SIDES[side_name]
+    side = Side(None, None, get_field(field_name), curve, tr_field, "native")
+    a, b, q, t = derive_generators(curve, 3)
+    rng = XorShiftRng(TEST_SEED)
+    r = field_random(rng, 1 << 128)
+    p = side.field.params.modulus
+    make, counts = FOLD_CASES[case]
+    comm_w, comm_e, u_comm_w, comm_t = make(curve, a, b, q, t, r)
+    U = HostRelaxedInstance(comm_w, comm_e, [field_random(rng, p) for _ in range(2)],
+                            field_random(rng, 1 << 200))
+    u = HostInstance(u_comm_w, [field_random(rng, p) for _ in range(2)])
+    before = _counted()
+    got = side.fold_instance(U, u, comm_t, r)
+    assert _increments(before) == counts
+    assert dataclasses.asdict(got) == dataclasses.asdict(int_fold_instance(side, U, u, comm_t, r))
+    if case == "identity_result":
+        assert got.comm_w is None and got.comm_e is not None
+    if case == "both_none":
+        assert got.comm_e is None
+
+
+def test_device_chain_instances_equal_int_path(small_sides, monkeypatch):
+    """A short fold chain of the device engine (and the native engine beside
+    it): the running instance after each fold equals that of the same chain
+    with the native call patched out, so that IntCurve folds every pair.
+    On each engine the default accumulator's first fold takes IntCurve for
+    both pairs; its cross term is 0 (T = 0 against a zero accumulator), so
+    the second fold's E pair has the identity as its base and takes
+    IntCurve too; every other pair takes the native call."""
+    dev, nat = small_sides
+    folds = 3
+    before = _counted()
+    native = [(got[0], want[0]) for *_, got, want, _ in _fold_both(dev, nat, folds)]
+    assert _increments(before) == (2 * (2 * folds - 3), 2 * 3)
+    monkeypatch.setattr(Side, "fold_instance", int_fold_instance)
+    before = _counted()
+    oracle = [(got[0], want[0]) for *_, got, want, _ in _fold_both(dev, nat, folds)]
+    assert _increments(before) == (0, 0)
+    assert len(native) == len(oracle) == folds
+    for (U_d, U_n), (V_d, V_n) in zip(native, oracle):
+        assert dataclasses.asdict(U_d) == dataclasses.asdict(V_d)
+        assert dataclasses.asdict(U_n) == dataclasses.asdict(V_n)
+    assert native[-1][0].comm_w is not None and native[-1][0].comm_e is not None
 
 
 # -- the full shape on the CPU's plain kernels

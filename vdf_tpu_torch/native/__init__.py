@@ -2,7 +2,7 @@
 
 ``pasta.cpp`` is a byte-identical copy of ``vdf_tpu/native/pasta.cpp``
 (the port cannot import ``vdf_tpu.native``: ``vdf_tpu`` pulls in jax).
-It is never on the device engine's path.  It serves two roles:
+It never runs on the card.  It serves two roles:
 
   * the oracle: tests and chip_smoke.py hold the CUDA commit against its
     CPU Pippenger, ``msm_native``;
@@ -12,9 +12,11 @@ It is never on the device engine's path.  It serves two roles:
     transcripts and the in-circuit sponge's S-box values) and
     ``ec_fold_witness_native`` (the in-circuit instance fold's point
     values), whose ``*_words`` forms hand the values over as the
-    ``(k, 4)`` uint64 block the value-only witness keeps.
-    ``minroot_eval_native``, ``minroot_inverse_native`` and
-    ``fold_points_native`` are carried for the modules still to port.
+    ``(k, 4)`` uint64 block the value-only witness keeps, and the
+    instance fold ``Side.fold_instance`` (``fold_points_native_or_none``:
+    a P + b Q, batched).  The host IPA folds its generators with
+    ``fold_points_native`` (spartan/host.py); the bench's baseline is
+    ``minroot_eval_native``.
 
 The library builds at first use with g++ into
 ``vdf_tpu_torch/_build/native-<key>/`` (git-ignored), next to the
@@ -260,10 +262,11 @@ def ec_fold_witness_native_words(field_name: str, base_proj: tuple[int, int, int
     return out
 
 
-def fold_points_native(curve_name: str, pts_p: list[tuple[int, int]],
-                       pts_q: list[tuple[int, int]], a: int, b: int) -> list[tuple[int, int]]:
-    """out[i] = a P[i] + b Q[i], batched, affine canonical in and out;
-    raises if any result is the identity (it has no affine form)."""
+def fold_points_native_or_none(curve_name: str, pts_p: list[tuple[int, int]],
+                               pts_q: list[tuple[int, int]], a: int,
+                               b: int) -> list[tuple[int, int] | None]:
+    """out[i] = a P[i] + b Q[i], batched (one inversion), affine canonical in
+    and out; None where a result is the identity (the row pasta.cpp flags)."""
     n = len(pts_p)
     if len(pts_q) != n:
         raise ValueError(f"{n} points P and {len(pts_q)} points Q")
@@ -272,7 +275,15 @@ def fold_points_native(curve_name: str, pts_p: list[tuple[int, int]],
     load().fold_points_native(1 if curve_name == "vesta" else 0, _ptr(pack_points_u64(pts_p)),
                               _ptr(pack_points_u64(pts_q)), _ptr(_u64_buffer([a])),
                               _ptr(_u64_buffer([b])), n, _ptr(out), _ptr(flags))
-    if flags.any():
-        raise ValueError("fold_points_native produced an identity point")
     vals = ints_of_u64(out)
-    return [(vals[2 * i], vals[2 * i + 1]) for i in range(n)]
+    return [None if flags[i] else (vals[2 * i], vals[2 * i + 1]) for i in range(n)]
+
+
+def fold_points_native(curve_name: str, pts_p: list[tuple[int, int]],
+                       pts_q: list[tuple[int, int]], a: int, b: int) -> list[tuple[int, int]]:
+    """``fold_points_native_or_none`` where no result may be the identity
+    (it has no affine form): raises if one is."""
+    out = fold_points_native_or_none(curve_name, pts_p, pts_q, a, b)
+    if any(v is None for v in out):
+        raise ValueError("fold_points_native produced an identity point")
+    return out

@@ -7,9 +7,10 @@ PublicParams / RecursiveSNARK, src/nova/proof.rs:232-237, 301-358,
   * **Control plane (host ints)**: instance folding, Fiat–Shamir
     transcripts and augmented-circuit witness synthesis are tiny, branchy
     and strictly sequential.  They run on Python ints
-    (fields/int_field.py, curves/int_ops.py, poseidon/int_poseidon.py and
-    the native witness emitters), whose outputs the circuits re-derive bit
-    for bit.
+    (fields/int_field.py, curves/int_ops.py, poseidon/int_poseidon.py) and
+    the native tier (the witness emitters; the instance fold's commitments,
+    ``fold_points_native_or_none``), whose outputs the circuits re-derive
+    bit for bit.
   * **Data plane**, one of two engines, named by the caller:
       - ``"device"`` (the default): the witness handles are ``(n, 8)``
         Montgomery tensors on the card; every commit is the fixed-base
@@ -46,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
+import threading
 
 import numpy as np
 import torch
@@ -57,7 +59,12 @@ from ..device import resolve_device
 from ..errors import NovaError, SynthesisError
 from ..fields import NLIMBS, Field, get_field
 from ..fields.int_field import get_int_field
-from ..native import msm_native_packed, pack_points_u64, pack_scalars_u64
+from ..native import (
+    fold_points_native_or_none,
+    msm_native_packed,
+    pack_points_u64,
+    pack_scalars_u64,
+)
 from ..poseidon.int_poseidon import IntTranscript
 from ..r1cs.cs import R1CSShape
 from ..utils.profiling import PhaseTimer
@@ -72,6 +79,12 @@ from .pedersen import CommitmentKey, commitment_key, derive_generators
 from .r1cs_device import DeviceShape
 
 ENGINES = ("device", "native")
+
+# How each commitment pair of every instance fold of the process was folded:
+# in the batched native call or on IntCurve (an identity operand).  Never
+# reset; folds on several threads (prove_interleaved) count under the lock.
+INSTANCE_FOLDS = {"native": 0, "int": 0}
+_FOLDS_LOCK = threading.Lock()
 
 # ---------------------------------------------------------------------
 # host-side instance types
@@ -157,6 +170,11 @@ def fold_challenge(
     tr = IntTranscript(field_name)
     tr.absorb(d, *_relaxed_els(U), *_strict_els(u), *_point_els(comm_t))
     return tr.squeeze() % (1 << CHALLENGE_BITS)
+
+
+def _canon_affine(pt: tuple[int, int], p: int) -> tuple[int, int]:
+    """An affine pair reduced mod p, as ``IntCurve.from_affine`` takes it."""
+    return (pt[0] % p, pt[1] % p)
 
 
 def _commit_len(shape: R1CSShape) -> int:
@@ -512,7 +530,7 @@ class Side:
         instances' X and u encoded, the lift, the matvecs, the cross term and
         the commit), "read" (the
         commitments read back as affine ints), "challenge", "instance" (the
-        instance fold on ``IntCurve``) and "witness" (the linear folds).
+        instance fold, ``fold_instance``) and "witness" (the linear folds).
 
         Returns (U', W', E', comm_T, r, zprod'); zprod' is None on the
         native engine, whose fold is the six-matvec one."""
@@ -562,17 +580,31 @@ class Side:
     def fold_instance(
         self, U: HostRelaxedInstance, u: HostInstance, comm_t: tuple | None, r: int
     ) -> HostRelaxedInstance:
-        """Instance-side fold (the part the augmented circuit re-derives)."""
+        """Instance-side fold (the part the augmented circuit re-derives).
+        The commitments base + r pt: the pairs whose operands are both points
+        in one batched native call (one inversion; a result at the identity
+        comes back None), a pair with the identity (None) as an operand, as
+        on the first folds of a default accumulator, on ``IntCurve``."""
         c = self.int_curve
         p = self.field.params.modulus
-
-        def scaled_add(base: tuple | None, pt: tuple | None) -> tuple | None:
-            acc = c.add(c.from_affine(base), c.scalar_mul(c.from_affine(pt), r))
-            return c.to_affine(acc)
-
+        pairs = ((U.comm_w, u.comm_w), (U.comm_e, comm_t))
+        native = [k for k, pair in enumerate(pairs) if None not in pair]
+        comms = [None, None]
+        if native:
+            folded = fold_points_native_or_none(
+                self.curve_name, [_canon_affine(pairs[k][0], c.p) for k in native],
+                [_canon_affine(pairs[k][1], c.p) for k in native], 1, r)
+            for k, v in zip(native, folded):
+                comms[k] = v
+        for k, (base, pt) in enumerate(pairs):
+            if k not in native:
+                comms[k] = c.to_affine(c.add(c.from_affine(base), c.scalar_mul(c.from_affine(pt), r)))
+        with _FOLDS_LOCK:
+            INSTANCE_FOLDS["native"] += len(native)
+            INSTANCE_FOLDS["int"] += len(pairs) - len(native)
         return HostRelaxedInstance(
-            scaled_add(U.comm_w, u.comm_w),
-            scaled_add(U.comm_e, comm_t),
+            comms[0],
+            comms[1],
             [(U.X[k] + r * u.X[k]) % p for k in range(2)],
             U.u + r,
         )
