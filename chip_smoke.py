@@ -1672,7 +1672,7 @@ def _prove_timed(pp, z0: list, steps: int, snapshot_at: int | None = None):
 # fused pass, its three parts.  The seeding of the product cache (the first
 # primary fold) counts in "fold other".
 FOLD_PARTS = {"encode x, u, r": ("Field", "encode"), "fused pass": ("Side", "_fold_strict"),
-              "read + affine": ("Side", "_affine_of"),
+              "read + affine": ("Curve", "to_affine_ints"),
               "challenge": ("ivc", "fold_challenge"), "instance fold": ("Side", "fold_instance"),
               "witness fold": ("Side", "_wfoldp")}
 FUSED_PARTS = {"lift (K3)": ("Side", "_lift"), "matvecs + cross term": ("Side", "_cross"),
@@ -1687,11 +1687,13 @@ def _fold_timers(acc: dict):
     to ``acc``.  The same functions called anywhere else run untimed."""
     import torch
 
+    from vdf_tpu_torch.curves.point import Curve
     from vdf_tpu_torch.fields import Field
     from vdf_tpu_torch.nova import CommitmentKey, ivc
     from vdf_tpu_torch.nova.ivc import Side
 
-    owners = {"Field": Field, "Side": Side, "CommitmentKey": CommitmentKey, "ivc": ivc}
+    owners = {"Field": Field, "Side": Side, "CommitmentKey": CommitmentKey, "ivc": ivc,
+              "Curve": Curve}
     active = []  # the parts running now, outermost first
     saved = []
 

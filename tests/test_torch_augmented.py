@@ -36,7 +36,7 @@ from vdf_tpu_torch.nova.gadgets.instance import (
 )
 from vdf_tpu_torch.nova.gadgets.sponge import TranscriptGadget
 from vdf_tpu_torch.nova.ivc import HostInstance, HostRelaxedInstance, fold_challenge, state_hash
-from vdf_tpu_torch.poseidon.int_poseidon import _native_permute, _permute_ints_py
+from vdf_tpu_torch.poseidon.int_poseidon import _permute_ints_py, checked_native
 from vdf_tpu_torch.r1cs import bits
 from vdf_tpu_torch.r1cs.cs import ONE, LinearCombination, ShapeCS
 from vdf_tpu_torch.r1cs.gadgets import Num
@@ -135,7 +135,7 @@ def test_native_witness_equals_python_paths(side):
     """check=True takes the Python rounds of the sponge and the instance
     fold; check=False takes poseidon_permute_native's S-box triples and
     ec_fold_witness_native's point values: the same witness."""
-    assert _native_permute() is not None
+    assert checked_native().poseidon_permute_native is poseidon_permute_native
     k = 0 if side == "primary" else 1
     circ = augmented.make_circuits(T)[k]
     inp = _inputs(ivc, augmented, side, base=False)
@@ -158,10 +158,31 @@ def test_poseidon_permute_native_equals_python(field_name, width):
     assert triples[:3] == [x * x % p, pow(x, 4, p), pow(x, 5, p)]
 
 
-def _constants_rc0(field_name: str, width: int) -> int:
-    from vdf_tpu_torch.poseidon.int_poseidon import _constants
+def test_native_poseidon_that_disagrees_raises(monkeypatch):
+    """A native permutation that disagrees with the Python rounds raises at
+    permute_ints and at the sponge's block path: no path falls back to the
+    Python rounds."""
+    from vdf_tpu_torch import native
+    from vdf_tpu_torch.poseidon import int_poseidon
 
-    return _constants(field_name, width)[0][0][0]
+    real = native._poseidon
+    monkeypatch.setattr(native, "_poseidon", lambda *a: [v ^ 1 for v in real(*a)])
+    int_poseidon.checked_native.cache_clear()
+    with pytest.raises(RuntimeError, match="disagrees"):
+        int_poseidon.permute_ints("Fq", [0] * 5)
+    cs = WitnessCS(get_int_field("Fq"), inputs=[])
+    assert cs.blocks
+    tr = TranscriptGadget(cs, "Fq", name="tr")
+    tr.absorb(*(Num(LinearCombination(), v) for v in (1, 2, 3)))
+    with pytest.raises(RuntimeError, match="disagrees"):
+        tr.squeeze()
+    assert cs.num_aux == 0
+
+
+def _constants_rc0(field_name: str, width: int) -> int:
+    from vdf_tpu_torch.poseidon.params import round_constants
+
+    return round_constants(field_name, width)[0][0][0]
 
 
 @pytest.mark.parametrize("field_name", ["Fp", "Fq"])

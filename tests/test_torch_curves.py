@@ -19,6 +19,7 @@ from vdf_tpu.curves.point import Point as JaxPoint
 from vdf_tpu.nova.pedersen import commitment_key as jax_commitment_key
 from vdf_tpu_torch import interop
 from vdf_tpu_torch.curves import IDENTITY, Point, get_curve, get_int_curve, hash_to_curve_ints
+from vdf_tpu_torch.fields import Field
 from vdf_tpu_torch.nova import commitment_key
 
 # The plain versions are many small tensor ops: one intra-op thread runs
@@ -129,6 +130,26 @@ def test_generator_and_affine_round_trip(curve_name):
     aff = hash_to_curve_ints(curve_name, 3, domain=b"vdf_tpu/t")
     assert c.to_affine_ints(c.from_affine_ints(aff, device="cpu")) == aff
     assert c.to_affine_ints(c.identity((2,), device="cpu")) == [None, None]
+
+
+@pytest.mark.parametrize("curve_name", CURVES)
+@pytest.mark.parametrize("batched", [False, True], ids=["(8,)", "(k, 8)"])
+def test_to_affine_ints_decodes_in_one_read(curve_name, batched, monkeypatch):
+    """to_affine_ints of each point as (8,) coordinates and of all as one
+    (k, 8) batch, the identity and a z != 1 point among them: IntCurve's
+    affine values, from exactly one Field.decode a call."""
+    ic, c = get_int_curve(curve_name), get_curve(curve_name)
+    trips = triples(curve_name)
+    pt = port_point(curve_name, trips)
+    pts = [pt] if batched else [Point(*(v[k] for v in pt)) for k in range(len(trips))]
+    reads = []
+    decode = Field.decode
+    monkeypatch.setattr(Field, "decode", lambda self, a: reads.append(a.shape) or decode(self, a))
+    got = []
+    for p in pts:
+        got += c.to_affine_ints(p)
+    assert got == [ic.to_affine(t) for t in trips]
+    assert None in got and len(reads) == len(pts)
 
 
 @pytest.mark.parametrize("curve_name", CURVES)

@@ -51,7 +51,7 @@ assert vdf_tpu_torch.ivc_public_params is ivc.ivc_public_params
 assert vdf_tpu_torch.ivc_compress is compressed.ivc_compress
 assert vdf_tpu_torch.serialize_compressed is serialize.serialize_compressed
 assert spartan.spartan_prove is spartan_snark.spartan_prove and spartan.ipa_prove is ipa.ipa_prove
-assert int_poseidon._native_permute() is not None  # the native tier builds and agrees
+assert int_poseidon.checked_native() is native  # the native tier builds and agrees
 
 assert vdf_tpu_torch.commitment_key is nova.commitment_key
 assert vdf_tpu_torch.msm is msm and curves.msm is msm and vdf_tpu_torch.NovaVDFProof is snark.NovaVDFProof

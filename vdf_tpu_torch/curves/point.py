@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from ..fields import Field, get_field
+from ..fields import NLIMBS, Field, get_field
 from ..fields.ops import from_digits, to_digits
 
 B_COEFF = 5  # y^2 = x^3 + 5 for both Pasta curves
@@ -230,19 +230,19 @@ class Curve:
         return (cross_x & cross_y) | both_id
 
     def to_affine_ints(self, p: Point) -> list[tuple[int, int] | None]:
-        """Host-side exact affine decode (None = identity)."""
-        f = self.field
-        mod = f.params.modulus
-        xs, ys, zs = (f.decode(a) for a in p)
-        if isinstance(xs, int):
-            xs, ys, zs = [xs], [ys], [zs]
+        """A Point of (8,) or (..., 8) coordinates -> its affine int pairs,
+        flattened over the leading axes (None = identity), from ONE read
+        of the device."""
+        vals = self.field.decode(stack_point(p).reshape(-1, NLIMBS))
+        mod = self.field.params.modulus
         out = []
-        for x, y, z in zip(xs, ys, zs):
+        for k in range(0, len(vals), 3):
+            x, y, z = vals[k : k + 3]
             if z == 0:
                 out.append(None)
-            else:
-                zi = pow(z, -1, mod)
-                out.append(((x * zi) % mod, (y * zi) % mod))
+                continue
+            zi = pow(z, -1, mod)
+            out.append((x * zi % mod, y * zi % mod))
         return out
 
     # -- scalar multiplication -----------------------------------------

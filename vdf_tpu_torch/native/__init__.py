@@ -1,4 +1,5 @@
-"""The native C++ tier, as the port's host-side oracle.
+"""The native C++ tier: the port's host-side oracle and a required part
+of its host control plane.
 
 ``pasta.cpp`` is a byte-identical copy of ``vdf_tpu/native/pasta.cpp``
 (the port cannot import ``vdf_tpu.native``: ``vdf_tpu`` pulls in jax).
@@ -18,7 +19,10 @@ It never runs on the card.  It serves two roles:
     ``fold_points_native`` (spartan/host.py); the bench's baseline is
     ``minroot_eval_native``.
 
-The library builds at first use with g++ into
+Nothing falls back to Python: a failed build raises, and
+``poseidon/int_poseidon.py::checked_native`` raises where the permutation
+disagrees with the Python rounds.  The library builds at first use, never
+at import, with g++ into
 ``vdf_tpu_torch/_build/native-<key>/`` (git-ignored), next to the
 generated ``pasta_constants.h``; ``<key>`` hashes the source, the header
 and the flags.  The finished library is renamed into place, so several
@@ -196,10 +200,9 @@ def minroot_inverse_native(field_name: str, x: int, y: int, i: int, t: int):
 
 @functools.lru_cache(maxsize=8)
 def _poseidon_packed(field_name: str, width: int):
-    from ..poseidon.int_poseidon import _constants
-    from ..poseidon.params import FULL_ROUNDS, partial_rounds
+    from ..poseidon.params import FULL_ROUNDS, partial_rounds, round_constants
 
-    rc, mds = _constants(field_name, width)
+    rc, mds = round_constants(field_name, width)
     r_p = partial_rounds(width)
     half = FULL_ROUNDS // 2
     n_sbox = half * width + r_p + (FULL_ROUNDS - half) * width

@@ -49,14 +49,6 @@ def _alloc_num(cs, name: str, value=None) -> AllocatedNum:
     return AllocatedNum(cs.alloc(name))
 
 
-def _native_ec():
-    """ec_fold_witness_native_words when the native build is available (the
-    Poseidon self-check in int_poseidon gates the same library)."""
-    from ...poseidon.int_poseidon import _native_permute
-
-    return ec_fold_witness_native_words if _native_permute() is not None else None
-
-
 @dataclasses.dataclass
 class PointParts:
     """A point as three Nums (x, y, inf) — the canonical hash encoding."""
@@ -250,15 +242,14 @@ class AllocatedRelaxedInstance:
         r_val = bits_value(r_bits) if _is_witness(cs) else None
         r_num = Num(bits_to_lc(r_bits), r_val)
 
-        # Native witness fast path: the C++ emitter produces every
-        # allocated value of scalar_mul + add + to_affine in gadget
-        # order (native/pasta.cpp::ec_fold_witness_native), so the
-        # value-only pass over host ints allocates it as one block in
-        # place of the double-and-add chains in Python ints.
-        native_ec = _native_ec() if getattr(cs, "blocks", False) else None
+        # The value-only pass over host ints (cs.blocks): the C++ emitter
+        # produces every allocated value of scalar_mul + add + to_affine in
+        # gadget order (native/pasta.cpp::ec_fold_witness_native), allocated
+        # as one block in place of the double-and-add chains in Python ints.
+        blocks = getattr(cs, "blocks", False)
 
         def scaled_add(base: AllocatedPoint, pt: AllocatedPoint, nm: str) -> PointParts:
-            if native_ec is not None:
+            if blocks:
                 p_mod = cs.field.params.modulus
 
                 def proj(ap: AllocatedPoint) -> tuple[int, int, int]:
@@ -273,7 +264,7 @@ class AllocatedRelaxedInstance:
                     bits_msb = r_bits.msb_first()
                 else:
                     bits_msb = [b.value for b in reversed(r_bits)]
-                words = native_ec(
+                words = ec_fold_witness_native_words(
                     cs.field.params.name, proj(base), proj(pt), bits_msb
                 )
                 cs.alloc_block(words)

@@ -18,9 +18,8 @@ package, which pulls in jax), its imports re-pointed at the port.
 
 from __future__ import annotations
 
-from ...native import poseidon_permute_native_words
-from ...poseidon.int_poseidon import _constants, _native_permute
-from ...poseidon.params import FULL_ROUNDS, partial_rounds
+from ...poseidon.int_poseidon import checked_native
+from ...poseidon.params import FULL_ROUNDS, partial_rounds, round_constants
 from ...r1cs.cs import ONE, LinearCombination
 from ...r1cs.gadgets import AllocatedNum, Num, _is_witness
 from .ec import _num_add, const_num, num_mul
@@ -35,40 +34,29 @@ def _sbox(cs, x, name: str) -> AllocatedNum:
 
 def permute_gadget(cs, field_name: str, state: list, name: str = "pos") -> list:
     """One Poseidon permutation over a list of Nums (width = len(state)).
-    Mirrors poseidon/int_poseidon.py:permute_ints round for round."""
-    width = len(state)
-    rc, mds = _constants(field_name, width)
-    r_p = partial_rounds(width)
-    half = FULL_ROUNDS // 2
+    Mirrors poseidon/int_poseidon.py:permute_ints round for round.
 
-    # The linear layers (round constants + MDS mix) are free LCs in the
-    # shape pass, but their LC dicts are pure overhead in the witness
-    # pass: only enforce() consumes LCs, and it is a no-op when
-    # check=False, so the witness pass skips them (the transcript gadgets
-    # are most of a step's host synthesis).  check=True (TestConstraintSystem mode)
-    # keeps full LCs so debug satisfiability still sees every row.
-    values_only = _is_witness(cs) and not getattr(cs, "check", False)
-    _empty = LinearCombination()
-
-    # Native witness fast path: the C++ permutation emits every S-box
-    # intermediate in this gadget's allocation order, so the value-only
-    # pass allocates the returned buffer as one block in place of the
-    # Python-int rounds.  Requires a pass over host ints (the augmented
-    # circuit's control plane, ``cs.blocks``) and the native build.
-    if getattr(cs, "blocks", False) and _native_permute() is not None:
-        out_state, triples = poseidon_permute_native_words(
+    The value-only pass over host ints (``cs.blocks``) reads no linear
+    combination: the C++ permutation emits every S-box's (x^2, x^4, x^5) in
+    this gadget's allocation order, allocated as one block.  The shape pass
+    and ``check=True`` take the rounds below, with their linear
+    combinations."""
+    if getattr(cs, "blocks", False):
+        out_state, triples = checked_native().poseidon_permute_native_words(
             field_name, [int(el.value) for el in state]
         )
         cs.alloc_block(triples)
-        return [Num(_empty, v) for v in out_state]
+        empty = LinearCombination()
+        return [Num(empty, v) for v in out_state]
+    width = len(state)
+    rc, mds = round_constants(field_name, width)
+    r_p = partial_rounds(width)
+    half = FULL_ROUNDS // 2
 
     def add_rc(s: list, r: int) -> list:
         out = []
         for j, el in enumerate(s):
             k = rc[r][j]
-            if values_only:
-                out.append(Num(_empty, cs.field.add(el.value, k)))
-                continue
             value = None
             if _is_witness(cs):
                 value = cs.field.add(el.value, k)
@@ -77,17 +65,6 @@ def permute_gadget(cs, field_name: str, state: list, name: str = "pos") -> list:
 
     def mds_mul(s: list) -> list:
         out = []
-        if values_only:
-            f = cs.field
-            mod = f.params.modulus
-            vals = [el.value for el in s]
-            for i in range(width):
-                row = mds[i]
-                value = 0
-                for j in range(width):
-                    value = f.add(value, f.mul(vals[j], row[j] % mod))
-                out.append(Num(_empty, value))
-            return out
         lcs = [el.lc() for el in s]
         for i in range(width):
             # single-dict accumulation: avoids width copies of growing

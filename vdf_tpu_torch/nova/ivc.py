@@ -54,7 +54,6 @@ import torch
 
 from ..curves.int_ops import IntCurve, get_int_curve
 from ..curves.kernels import canon_mont
-from ..curves.point import stack_point
 from ..device import resolve_device
 from ..errors import NovaError, SynthesisError
 from ..fields import NLIMBS, Field, get_field
@@ -332,22 +331,6 @@ class Side:
     def _padded(self, v: torch.Tensor) -> torch.Tensor:
         return torch.nn.functional.pad(v, (0, 0, 0, self._commit_pad - v.shape[0]))
 
-    def _affine_of(self, pts) -> list:
-        """A Point of (k, 8) Montgomery coordinates -> k affine int pairs
-        (None for the identity), from ONE read of the device."""
-        f_base = self.ck.curve.field
-        vals = f_base.decode(stack_point(pts).reshape(-1, NLIMBS))
-        mod = f_base.params.modulus
-        out = []
-        for k in range(0, len(vals), 3):
-            x, y, z = vals[k : k + 3]
-            if z == 0:
-                out.append(None)
-                continue
-            zi = pow(z, -1, mod)
-            out.append((x * zi % mod, y * zi % mod))
-        return out
-
     def _x_u_enc(self, U) -> tuple[torch.Tensor, torch.Tensor]:
         """X (2, 8) and u (8,) of an instance, encoded in one transfer."""
         u = U.u if isinstance(U, HostRelaxedInstance) else 1
@@ -367,7 +350,7 @@ class Side:
 
     def commit_w(self, w: torch.Tensor) -> tuple | None:
         """Pedersen commit of a Montgomery device handle -> affine ints."""
-        return self._affine_of(self._commit_one(w))[0]
+        return self.ck.curve.to_affine_ints(self._commit_one(w))[0]
 
     def _commit_one(self, w: torch.Tensor):
         """One commit -> a Point of (1, 8), not read."""
@@ -465,7 +448,7 @@ class Side:
             return False
         if not self.dev_shape.check_relaxed(self.field, W, E, x, u, self._matvecs):
             return False
-        return self._affine_of(self._commit_pair(W, E)) == [comm_w, comm_e]
+        return self.ck.curve.to_affine_ints(self._commit_pair(W, E)) == [comm_w, comm_e]
 
     def check_sat(self, U, W, E) -> bool:
         comm_e = U.comm_e if isinstance(U, HostRelaxedInstance) else None
@@ -562,7 +545,7 @@ class Side:
                 t, zprod2 = self._cross(zprod, u1, w2, x2)
                 pts = self._commit_one(t)
         with self._span(timer, "read"):
-            comms = self._affine_of(pts)
+            comms = self.ck.curve.to_affine_ints(pts)
         if deferred:
             u.comm_w, comm_t = comms
         else:

@@ -9,55 +9,45 @@ challenges are re-derived inside the augmented circuit.  All three share
 the constants from ``poseidon/params.py``; tests/test_torch_poseidon.py
 and tests/test_torch_augmented.py lock the parity.
 
-The permutation runs in C++ (native/pasta.cpp) once that library builds
-and gives the Python rounds' values on a fixed state; otherwise in Python.
+The permutation runs in C++ (native/pasta.cpp), which the port requires:
+``checked_native`` builds the library at first use and holds its
+permutation against the Python rounds here on a fixed state, and raises
+where either fails.  The Python rounds stay as the reference the tests
+hold the native tier against.
 """
 
 from __future__ import annotations
 
 import functools
 
+from .. import native
 from ..fields.int_field import get_int_field
-from .params import FULL_ROUNDS, generate_constants, partial_rounds
-
-
-@functools.lru_cache(maxsize=64)
-def _constants(field_name: str, width: int):
-    rc, mds = generate_constants(field_name, width)
-    n_rounds = FULL_ROUNDS + partial_rounds(width)
-    rc = [rc[r * width : (r + 1) * width] for r in range(n_rounds)]
-    return rc, mds
+from .params import FULL_ROUNDS, partial_rounds, round_constants
 
 
 @functools.cache
-def _native_permute():
-    """The C++ permutation when the native library builds and agrees with
-    the Python rounds on a fixed state; None otherwise.  The host
-    transcripts sit on every fold's critical path (nova/ivc.py
-    fold_challenge, state_hash)."""
-    try:
-        from ..native import poseidon_permute_native
-
-        got = poseidon_permute_native("Fq", [1, 2, 3, 4, 5])
-        want = _permute_ints_py("Fq", [1, 2, 3, 4, 5], 5)
-        return poseidon_permute_native if got == want else None
-    except Exception:
-        return None
+def checked_native():
+    """The native tier, ``vdf_tpu_torch.native``, once its permutation has
+    given the Python rounds' values on a fixed state: the first call builds
+    and loads the library, and raises RuntimeError, as ``native.load`` does
+    for a failed build, where the two disagree.  Every native permutation,
+    the ``*_words`` form included, is reached through it."""
+    got = native.poseidon_permute_native("Fq", [1, 2, 3, 4, 5])
+    if got != _permute_ints_py("Fq", [1, 2, 3, 4, 5], 5):
+        raise RuntimeError("the native Poseidon permutation disagrees with the Python rounds")
+    return native
 
 
 def permute_ints(field_name: str, state: list[int], width: int | None = None) -> list[int]:
-    """One Poseidon permutation over canonical ints."""
+    """One Poseidon permutation over canonical ints, in C++."""
     width = width or len(state)
     assert len(state) == width
-    native = _native_permute()
-    if native is not None:
-        return native(field_name, [int(v) for v in state])
-    return _permute_ints_py(field_name, state, width)
+    return checked_native().poseidon_permute_native(field_name, [int(v) for v in state])
 
 
 def _permute_ints_py(field_name: str, state: list[int], width: int) -> list[int]:
     p = get_int_field(field_name).p
-    rc, mds = _constants(field_name, width)
+    rc, mds = round_constants(field_name, width)
     r_p = partial_rounds(width)
     half = FULL_ROUNDS // 2
 

@@ -107,3 +107,12 @@ def generate_constants(field_name: str, width: int):
         for i in range(width)
     )
     return rc, mds
+
+
+@functools.lru_cache(maxsize=64)
+def round_constants(field_name: str, width: int):
+    """``generate_constants`` as the host rounds read it: (rc, mds), rc a
+    list of (R_F+R_P) rows of ``width`` constants, one a round."""
+    rc, mds = generate_constants(field_name, width)
+    n_rounds = FULL_ROUNDS + partial_rounds(width)
+    return [rc[r * width : (r + 1) * width] for r in range(n_rounds)], mds
