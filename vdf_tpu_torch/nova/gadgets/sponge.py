@@ -18,7 +18,7 @@ package, which pulls in jax), its imports re-pointed at the port.
 
 from __future__ import annotations
 
-from ...poseidon.int_poseidon import checked_native
+from ...poseidon.int_poseidon import permute_memo
 from ...poseidon.params import FULL_ROUNDS, partial_rounds, round_constants
 from ...r1cs.cs import ONE, LinearCombination
 from ...r1cs.gadgets import AllocatedNum, Num, _is_witness
@@ -38,12 +38,14 @@ def permute_gadget(cs, field_name: str, state: list, name: str = "pos") -> list:
 
     The value-only pass over host ints (``cs.blocks``) reads no linear
     combination: the C++ permutation emits every S-box's (x^2, x^4, x^5) in
-    this gadget's allocation order, allocated as one block.  The shape pass
-    and ``check=True`` take the rounds below, with their linear
+    this gadget's allocation order, allocated as one block, through
+    ``permute_memo``, which serves an input the prover permuted before (the
+    host's fold challenge, the previous output hash).  The shape pass and
+    ``check=True`` take the rounds below, with their linear
     combinations."""
     if getattr(cs, "blocks", False):
-        out_state, triples = checked_native().poseidon_permute_native_words(
-            field_name, [int(el.value) for el in state]
+        out_state, triples = permute_memo(
+            field_name, [int(el.value) for el in state], count=True
         )
         cs.alloc_block(triples)
         empty = LinearCombination()

@@ -64,7 +64,7 @@ from ..native import (
     pack_points_u64,
     pack_scalars_u64,
 )
-from ..poseidon.int_poseidon import IntTranscript
+from ..poseidon.int_poseidon import IntTranscript, MemoTranscript
 from ..r1cs.cs import R1CSShape
 from ..utils.profiling import PhaseTimer
 from .augmented import (
@@ -166,7 +166,10 @@ def fold_challenge(
     u: HostInstance,
     comm_t: tuple | None,
 ) -> int:
-    tr = IntTranscript(field_name)
+    """The fold's challenge r.  Its transcript permutes through the memo
+    (``MemoTranscript``): the augmented circuit that verifies this fold
+    re-derives r from the same permutations and reads them from there."""
+    tr = MemoTranscript(field_name)
     tr.absorb(d, *_relaxed_els(U), *_strict_els(u), *_point_els(comm_t))
     return tr.squeeze() % (1 << CHALLENGE_BITS)
 

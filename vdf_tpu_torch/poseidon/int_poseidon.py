@@ -14,11 +14,22 @@ The permutation runs in C++ (native/pasta.cpp), which the port requires:
 permutation against the Python rounds here on a fixed state, and raises
 where either fails.  The Python rounds stay as the reference the tests
 hold the native tier against.
+
+A prover needs some permutations twice: the augmented circuit re-derives
+the host's fold challenge, and each input hash repeats the output hash of
+the previous synthesis on its side.  ``permute_memo`` serves those from a
+bounded table keyed by the input state, with the S-box values the circuit
+allocates; its two callers are the in-circuit sponge's value-only pass
+(nova/gadgets/sponge.py) and ``MemoTranscript``, the fold challenge's
+transcript (nova/ivc.py::fold_challenge).  Every other transcript permutes
+through ``permute_ints`` and leaves the table alone.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 
 from .. import native
 from ..fields.int_field import get_int_field
@@ -43,6 +54,46 @@ def permute_ints(field_name: str, state: list[int], width: int | None = None) ->
     width = width or len(state)
     assert len(state) == width
     return checked_native().poseidon_permute_native(field_name, [int(v) for v in state])
+
+
+# The memo: (field name, input state) -> (output state, S-box triples), least
+# recently used first.  A step inserts ~23 entries and reads an output hash's
+# entry one step later, so 128 entries (~1.2 MB) hold four chains interleaved.
+MEMO_ENTRIES = 128
+_MEMO: collections.OrderedDict = collections.OrderedDict()
+_MEMO_LOCK = threading.Lock()
+
+# How each permutation of the in-circuit sponge's value-only pass was served:
+# from the memo or computed.  Never reset; syntheses on several threads
+# (prove_interleaved) count under the lock.
+PERMS = {"reused": 0, "computed": 0}
+
+
+def permute_memo(field_name: str, state: list[int], count: bool = False):
+    """One permutation of canonical ints with every S-box's (x^2, x^4, x^5):
+    -> (the output state as a tuple of ints, the ``(3 n_sbox, 4)`` uint64
+    words of ``poseidon_permute_native_words``, read-only), from the memo
+    where this input was permuted before.  A permutation is a pure function
+    of its input, so a hit returns what a miss computes.  ``count``: the
+    in-circuit sponge's call, counted in ``PERMS``."""
+    key = (field_name, tuple(int(v) for v in state))
+    with _MEMO_LOCK:
+        got = _MEMO.get(key)
+        if got is not None:
+            _MEMO.move_to_end(key)
+            if count:
+                PERMS["reused"] += 1
+            return got
+    out, triples = checked_native().poseidon_permute_native_words(field_name, list(key[1]))
+    triples.flags.writeable = False
+    got = (tuple(out), triples)
+    with _MEMO_LOCK:
+        _MEMO[key] = got
+        while len(_MEMO) > MEMO_ENTRIES:
+            _MEMO.popitem(last=False)
+        if count:
+            PERMS["computed"] += 1
+    return got
 
 
 def _permute_ints_py(field_name: str, state: list[int], width: int) -> list[int]:
@@ -102,7 +153,10 @@ class IntTranscript:
             st[0] = (st[0] + len(chunk) + 1) % self.p
             for j, el in enumerate(chunk):
                 st[1 + j] = (st[1 + j] + el) % self.p
-            self.state = permute_ints(self.field_name, st, self.width)
+            self.state = self._permute(st)
+
+    def _permute(self, st: list[int]) -> list[int]:
+        return permute_ints(self.field_name, st, self.width)
 
     def squeeze(self) -> int:
         self._flush()
@@ -110,3 +164,12 @@ class IntTranscript:
         self.state = [(self.state[0] + 1) % self.p] + self.state[1:]
         self.buf = []
         return out
+
+
+class MemoTranscript(IntTranscript):
+    """``IntTranscript`` whose permutations go through ``permute_memo``: the
+    fold challenge's transcript, whose every permutation the next synthesis
+    re-derives in circuit and then finds in the memo."""
+
+    def _permute(self, st: list[int]) -> list[int]:
+        return list(permute_memo(self.field_name, st)[0])
