@@ -23,7 +23,13 @@ from .snark import (
     public_params,
 )
 from .compressed import CompressedIVCProof, ivc_compress, ivc_verify_compressed
-from .pipeline import StatementProof, VDFStatement, prove_interleaved, prove_stream
+from .pipeline import (
+    InterleavedProver,
+    StatementProof,
+    VDFStatement,
+    prove_interleaved,
+    prove_stream,
+)
 
 __all__ = [
     "AugmentedCircuit",
@@ -59,6 +65,7 @@ __all__ = [
     "RecursiveSNARK",
     "eval_and_make_circuits",
     "public_params",
+    "InterleavedProver",
     "StatementProof",
     "VDFStatement",
     "prove_interleaved",

@@ -15,11 +15,12 @@ work on the default stream.  It waits for K1 with ``stream.synchronize()``,
 which releases the GIL, so stage F's Python synthesis runs meanwhile, and
 it hands stage F canonical ints, so no tensor crosses between the streams.
 
-``prove_interleaved`` folds K independent chains on K threads, so each
-chain's host work runs while the others wait on the card.  Its chains share
-one stream (the default): their lazily made constants (``Field.const_like``,
-the keys) are shared tensors, and a tensor made on one stream and read on
-another needs a synchronisation between them that nothing here would make.
+``InterleavedProver`` (and ``prove_interleaved`` on it) folds K independent
+chains on K threads, so each chain's host work runs while the others wait on
+the card.  Its chains share one stream (the default): their lazily made
+constants (``Field.const_like``, the keys) are shared tensors, and a tensor
+made on one stream and read on another needs a synchronisation between them
+that nothing here would make.
 
 Reference anchor: the sequential prove loop this pipelines around is
 ``prove_recursively``'s fold loop (src/nova/proof.rs:316-355) fed by
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import queue
 import threading
 import time
@@ -208,13 +210,9 @@ def _warm(pp: IVCParams) -> None:
             torch.cuda.synchronize(dev)
 
 
-def prove_interleaved(
-    pp: IVCParams,
-    z0s: list[list[int]],
-    num_steps: int,
-    starts: list[tuple[int, int, int]] | None = None,
-) -> list[IVCProof]:
-    """Fold several independent IVC chains concurrently on one device.
+class InterleavedProver:
+    """K independent IVC chains folded concurrently on one device, in runs
+    that can stop and resume.
 
     A single chain's fold loop alternates host work (witness synthesis,
     Fiat–Shamir) with device work (matvecs, commits) and waits on the card
@@ -225,34 +223,91 @@ def prove_interleaved(
     aggregate folds/s across chains is the BASELINE north star's
     "aggregate" axis; a chain's own latency is the single-chain mode's.
 
+    The constructor builds what the chains share (``_warm``) and runs each
+    chain's base step.  ``run`` folds on one thread a chain (named
+    ``ivc-chain-<k>``) and returns when every thread has stopped; a later
+    ``run`` continues every chain where it stopped.  The counters, one slot a
+    chain, each written only by its chain's thread: ``steps[k]``,
+    ``wall_s[k]`` (the summed wall time of ``prove_step``) and ``cpu_s[k]``
+    (the thread's own CPU time inside ``prove_step``, ``time.thread_time``);
+    ``wall_s[k] - cpu_s[k]`` is the time the thread spent inside a step off
+    the CPU: waiting for the GIL or blocked on the card.  Each chain keeps
+    its own ``timer``."""
+
+    def __init__(self, pp: IVCParams, z0s: list[list[int]]):
+        _warm(pp)
+        self.chains = [RecursiveIVC(pp, z0) for z0 in z0s]
+        self.reset_counters()
+
+    def reset_counters(self) -> None:
+        k = len(self.chains)
+        self.steps = [0] * k
+        self.wall_s = [0.0] * k
+        self.cpu_s = [0.0] * k
+
+    def run(self, num_steps: int | None = None, until=None, on_step=None) -> None:
+        """Fold every chain until it has ``num_steps - 1`` folds (its proof
+        then covers ``num_steps`` steps), or until ``until()`` returns true;
+        ``until`` is asked before each step, so a step begun finishes.
+        ``on_step(k, seconds)``, where given, is called from chain k's thread
+        after each of its steps with that step's wall time.  An exception in
+        a chain's thread stops that chain and reaches the caller, once every
+        thread has stopped, with ``partial_proofs`` attached: each chain's
+        proof, None for a chain that failed."""
+        if num_steps is None and until is None:
+            raise ValueError("run needs num_steps or until")
+        errs: list[BaseException | None] = [None] * len(self.chains)
+
+        def fold(k: int):
+            chain = self.chains[k]
+            todo = math.inf if num_steps is None else num_steps - chain.i
+            try:
+                while todo > 0 and not (until is not None and until()):
+                    w0, c0 = time.perf_counter(), time.thread_time()
+                    chain.prove_step()
+                    c1, w1 = time.thread_time(), time.perf_counter()
+                    self.steps[k] += 1
+                    self.wall_s[k] += w1 - w0
+                    self.cpu_s[k] += c1 - c0
+                    todo -= 1
+                    if on_step is not None:
+                        on_step(k, w1 - w0)
+            except BaseException as exc:  # raised in the caller's thread below
+                errs[k] = exc
+
+        threads = [threading.Thread(target=fold, args=(k,), name=f"ivc-chain-{k}")
+                   for k in range(len(self.chains))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        failed = next((exc for exc in errs if exc is not None), None)
+        if failed is not None:
+            failed.partial_proofs = [None if e is not None else c.proof()
+                                     for c, e in zip(self.chains, errs)]
+            raise failed
+
+    def proofs(self) -> list[IVCProof]:
+        return [c.proof() for c in self.chains]
+
+
+def prove_interleaved(
+    pp: IVCParams,
+    z0s: list[list[int]],
+    num_steps: int,
+    starts: list[tuple[int, int, int]] | None = None,
+) -> list[IVCProof]:
+    """Fold several independent IVC chains concurrently on one device
+    (``InterleavedProver``), ``num_steps`` steps each.
+
     Returns one IVCProof per chain, in z0s order.  Each chain is verified
     here when its ``starts`` entry (the chain's original VDF input) is
     given; a failure raises NovaError.  An exception in a chain's thread
     reaches the caller with ``partial_proofs`` attached: each chain's
     proof, None for a chain that failed."""
-    _warm(pp)
-    chains = [RecursiveIVC(pp, z0) for z0 in z0s]
-    errs: list[BaseException | None] = [None] * len(chains)
-
-    def run(k: int):
-        try:
-            for _ in range(num_steps - 1):
-                chains[k].prove_step()
-        except BaseException as exc:
-            errs[k] = exc
-
-    threads = [threading.Thread(target=run, args=(k,), name=f"ivc-chain-{k}")
-               for k in range(len(chains))]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join()
-    failed = next((exc for exc in errs if exc is not None), None)
-    if failed is not None:
-        failed.partial_proofs = [None if e is not None else c.proof()
-                                 for c, e in zip(chains, errs)]
-        raise failed
-    proofs = [c.proof() for c in chains]
+    prover = InterleavedProver(pp, z0s)
+    prover.run(num_steps=num_steps)
+    proofs = prover.proofs()
     if starts is not None:
         for proof, z0, start in zip(proofs, z0s, starts):
             if not ivc_verify(pp, proof, num_steps, z0, list(start)):
